@@ -1,0 +1,790 @@
+"""Column-at-a-time execution: relational tree -> MAL program -> columns.
+
+Late materialization: filters produce boolean *selection masks* (MonetDB's
+candidate lists, recast branch-free) that flow alongside the columns; rows
+are only compacted at blocking boundaries (join, group, sort, result).
+
+This is the host tier of the port: the same numpy program as the reference
+engine's, minus the spill branches and the index-assisted tactics (imprint
+selects, order-index merge joins), which arrive with the out-of-core and
+imprint slices.  Every blocking operator runs in memory.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+
+from .column import Column
+from .expression import Col, EvalContext, ExprResult
+from .mal import Instr, MALProgram
+from .optimizer import split_conjuncts
+from .physplan import TierPolicy
+from .relalg import (AggregateNode, FilterNode, JoinNode, LimitNode,
+                     OrderByNode, PlanNode, ProjectNode, ScanNode)
+from .types import DBType, NULL_SENTINEL, STORAGE_DTYPE, is_float
+
+# ---------------------------------------------------------------------------
+# compile: plan -> MALProgram
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RelInfo:
+    """Compile-time shape of an intermediate relation."""
+    cols: dict[str, str]                 # column name -> register
+    mask: Optional[str] = None           # selection-mask register
+    base_table: Optional[str] = None     # set iff this is an unfiltered scan
+    pure: bool = True                    # no projection applied yet
+
+
+def compile_plan(plan: PlanNode, catalog) -> MALProgram:
+    prog = MALProgram()
+    ri = _compile(plan, prog, catalog)
+    regs = []
+    names = []
+    if ri.mask is not None:
+        (idx,) = prog.emit("midx", (ri.mask,), hint="idx")
+        for name, reg in ri.cols.items():
+            (reg,) = prog.emit("take", (reg, idx), hint="c")
+            regs.append(reg)
+            names.append(name)
+    else:
+        for name, reg in ri.cols.items():
+            regs.append(reg)
+            names.append(name)
+    prog.emit("result", tuple(regs), payload=tuple(names), n_out=0)
+    prog.result_names = names
+    return prog
+
+
+def _binding_args(binding: dict[str, str]) -> tuple[str, ...]:
+    return tuple(sorted(set(binding.values())))
+
+
+def _compile(node: PlanNode, prog: MALProgram, catalog) -> RelInfo:
+    if isinstance(node, ScanNode):
+        cols = {}
+        names = node.columns or catalog.table(node.table).schema.names
+        for c in names:
+            (r,) = prog.emit("load", (), payload=(node.table, c), hint="c")
+            cols[c] = r
+        return RelInfo(cols, base_table=node.table)
+
+    if isinstance(node, FilterNode):
+        ri = _compile(node.child, prog, catalog)
+        binding = dict(ri.cols)
+        mask = ri.mask
+        for conj in split_conjuncts(node.predicate):
+            used = {c: binding[c] for c in conj.columns()}
+            (m,) = prog.emit(
+                "select", _binding_args(used),
+                payload=dict(expr=conj, binding=used,
+                             base_table=ri.base_table if ri.pure else None),
+                hint="m")
+            mask = m if mask is None else prog.emit("mand", (mask, m),
+                                                    hint="m")[0]
+        return RelInfo(dict(ri.cols), mask=mask,
+                       base_table=ri.base_table, pure=ri.pure)
+
+    if isinstance(node, ProjectNode):
+        ri = _compile(node.child, prog, catalog)
+        cols = {}
+        for e, name in node.exprs:
+            if isinstance(e, Col) and e.name in ri.cols:
+                cols[name] = ri.cols[e.name]
+                continue
+            used = {c: ri.cols[c] for c in e.columns()}
+            (r,) = prog.emit("expr", _binding_args(used),
+                             payload=dict(expr=e, binding=used), hint="e")
+            cols[name] = r
+        return RelInfo(cols, mask=ri.mask, base_table=ri.base_table,
+                       pure=False)
+
+    if isinstance(node, JoinNode):
+        lri = _compile(node.left, prog, catalog)
+        rri = _compile(node.right, prog, catalog)
+        lkeys = tuple(lri.cols[k] for k in node.left_keys)
+        rkeys = tuple(rri.cols[k] for k in node.right_keys)
+        args = lkeys + rkeys
+        masks = []
+        if lri.mask is not None:
+            masks.append(lri.mask)
+        if rri.mask is not None:
+            masks.append(rri.mask)
+        payload = dict(n_keys=len(lkeys), how=node.how,
+                       lmask=lri.mask is not None,
+                       rmask=rri.mask is not None,
+                       left_base=lri.base_table if lri.pure else None,
+                       right_base=rri.base_table if rri.pure else None,
+                       left_keys=node.left_keys, right_keys=node.right_keys)
+        n_out = 1 if node.how in ("semi", "anti") else 2
+        outs = prog.emit("join", args + tuple(masks), payload=payload,
+                         n_out=n_out, hint="idx")
+        cols = {}
+        for name, reg in lri.cols.items():
+            (r,) = prog.emit("fetch", (reg, outs[0]), hint="c")
+            cols[name] = r
+        if node.how in ("inner", "left"):
+            fill = node.how == "left"
+            for name, reg in rri.cols.items():
+                if name in cols:
+                    continue
+                (r,) = prog.emit("fetch", (reg, outs[1]),
+                                 payload=dict(fill_null=fill), hint="c")
+                cols[name] = r
+        return RelInfo(cols, mask=None, base_table=None, pure=False)
+
+    if isinstance(node, AggregateNode):
+        ri = _compile(node.child, prog, catalog)
+        keys = tuple(ri.cols[k] for k in node.group_by)
+        args = keys + ((ri.mask,) if ri.mask is not None else ())
+        rep = False
+        if not keys and ri.mask is None and ri.cols:
+            # zero-key global aggregate: pass one column so the runtime
+            # knows the row count
+            args = (next(iter(ri.cols.values())),)
+            rep = True
+        gid, nreg, idx = prog.emit(
+            "group", args,
+            payload=dict(n_keys=len(keys), has_mask=ri.mask is not None,
+                         rep=rep,
+                         base_table=ri.base_table if ri.pure else None,
+                         key_names=node.group_by),
+            n_out=3, hint="g")
+        cols = {}
+        for k, reg in zip(node.group_by, keys):
+            (r,) = prog.emit("gkey", (reg, gid, nreg, idx), hint="c")
+            cols[k] = r
+        for spec in node.aggs:
+            if spec.expr is None:
+                vreg = None
+            elif isinstance(spec.expr, Col):
+                vreg = ri.cols[spec.expr.name]
+            else:
+                used = {c: ri.cols[c] for c in spec.expr.columns()}
+                (vreg,) = prog.emit("expr", _binding_args(used),
+                                    payload=dict(expr=spec.expr,
+                                                 binding=used), hint="e")
+            a = (vreg, gid, nreg, idx) if vreg else (gid, nreg, idx)
+            (r,) = prog.emit("agg", a,
+                             payload=dict(fn=spec.fn,
+                                          has_value=vreg is not None),
+                             hint="a")
+            cols[spec.name] = r
+        return RelInfo(cols, mask=None, base_table=None, pure=False)
+
+    if isinstance(node, OrderByNode):
+        ri = _compile(node.child, prog, catalog)
+        cols = dict(ri.cols)
+        if ri.mask is not None:
+            (idx,) = prog.emit("midx", (ri.mask,), hint="idx")
+            cols = {n: prog.emit("take", (r, idx), hint="c")[0]
+                    for n, r in cols.items()}
+        keys = tuple(cols[k] for k, _ in node.keys)
+        (sidx,) = prog.emit("sort", keys,
+                            payload=dict(descs=tuple(d for _, d in node.keys),
+                                         limit=node.limit), hint="idx")
+        cols = {n: prog.emit("take", (r, sidx), hint="c")[0]
+                for n, r in cols.items()}
+        return RelInfo(cols, mask=None, pure=False)
+
+    if isinstance(node, LimitNode):
+        ri = _compile(node.child, prog, catalog)
+        cols = dict(ri.cols)
+        if ri.mask is not None:
+            (idx,) = prog.emit("midx", (ri.mask,), hint="idx")
+            cols = {n: prog.emit("take", (r, idx), hint="c")[0]
+                    for n, r in cols.items()}
+        cols = {n: prog.emit("slice", (r,), payload=node.n, hint="c")[0]
+                for n, r in cols.items()}
+        return RelInfo(cols, mask=None, pure=False)
+
+    raise TypeError(f"cannot compile {type(node).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# runtime helpers (host/numpy tier)
+# ---------------------------------------------------------------------------
+
+
+def _res_nulls(r: ExprResult) -> np.ndarray:
+    if r.null is not None:
+        return np.asarray(r.null)
+    if is_float(r.dbtype):
+        return np.isnan(r.values)
+    return np.asarray(r.values) == NULL_SENTINEL[r.dbtype]
+
+
+def _factorize(results: list[ExprResult],
+               idx: Optional[np.ndarray] = None) -> tuple[np.ndarray, int]:
+    """Combine N key columns into dense group codes (int64)."""
+    combined = None
+    for r in results:
+        v = np.asarray(r.values)
+        if idx is not None:
+            v = v[idx]
+        if r.dbtype == DBType.VARCHAR:
+            codes, n = v.astype(np.int64), len(r.heap)
+        else:
+            uniq, codes = np.unique(v, return_inverse=True)
+            codes, n = codes.astype(np.int64), len(uniq)
+        if combined is None:
+            combined = codes
+            card = n
+        else:
+            combined = combined * n + codes
+            card *= n
+    if combined is None:
+        return np.zeros(0, dtype=np.int64), 1
+    if card > (1 << 62) or card > 16 * len(combined) + 16:
+        uniq, combined = np.unique(combined, return_inverse=True)
+        card = len(uniq)
+    return combined.astype(np.int64), int(card)
+
+
+def _dense_gid(codes: np.ndarray) -> tuple[np.ndarray, int, np.ndarray]:
+    """codes -> (dense gid in first-occurrence order?, n, rep positions).
+
+    Group order follows sorted key order (stable, deterministic)."""
+    uniq, first_pos, gid = np.unique(codes, return_index=True,
+                                     return_inverse=True)
+    return gid.astype(np.int64), len(uniq), first_pos
+
+
+def _join_codes(lres, rres, n_keys) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Factorize join keys jointly; returns (lc, rc, lnull, rnull)."""
+    lc = rc = None
+    lnull = np.zeros(len(np.asarray(lres[0].values)), dtype=bool)
+    rnull = np.zeros(len(np.asarray(rres[0].values)), dtype=bool)
+    from .column import heaps_equal
+    for lr, rr in zip(lres, rres):
+        lv, rv = np.asarray(lr.values), np.asarray(rr.values)
+        lnull |= _res_nulls(lr)
+        rnull |= _res_nulls(rr)
+        if lr.dbtype == DBType.VARCHAR and rr.dbtype == DBType.VARCHAR \
+                and not heaps_equal(lr.heap, rr.heap):
+            # distinct dictionaries (by content, not object identity —
+            # separately-loaded copies of one table compare codes directly):
+            # fall back to the decoded strings
+            lv = lr.heap.decode(lv).astype(str)
+            rv = rr.heap.decode(rv).astype(str)
+        allv = np.concatenate([lv, rv])
+        uniq, inv = np.unique(allv, return_inverse=True)
+        la, ra = inv[:len(lv)].astype(np.int64), inv[len(lv):].astype(np.int64)
+        if lc is None:
+            lc, rc, card = la, ra, len(uniq)
+        else:
+            lc = lc * len(uniq) + la
+            rc = rc * len(uniq) + ra
+            card *= len(uniq)
+    return lc, rc, lnull, rnull
+
+
+def _hash_join(lc, rc, how, r_order=None):
+    """Vectorized 'hash' join: sorted build side + binary-search probe.
+
+    ``r_order`` may come from a persisted order index (merge-join tactical
+    path); otherwise we argsort (build phase of the hash table analogue)."""
+    order = np.argsort(rc, kind="stable") if r_order is None else r_order
+    rs = rc[order]
+    lo = np.searchsorted(rs, lc, "left")
+    hi = np.searchsorted(rs, lc, "right")
+    cnt = hi - lo
+    if how == "semi":
+        return np.nonzero(cnt > 0)[0], None
+    if how == "anti":
+        return np.nonzero(cnt == 0)[0], None
+    if how == "left":
+        if len(rs) == 0:
+            # empty build side (e.g. every right key NULL): every probe row
+            # survives unmatched.  The general path below would index the
+            # empty order array eagerly inside np.where.
+            return (np.arange(len(lc), dtype=np.int64),
+                    np.full(len(lc), -1, dtype=np.int64))
+        total = int(cnt.sum())
+        cnt1 = np.maximum(cnt, 1)
+        lidx = np.repeat(np.arange(len(lc), dtype=np.int64), cnt1)
+        offs = np.concatenate([[0], np.cumsum(cnt1)])[:-1]
+        pos = np.arange(int(cnt1.sum()), dtype=np.int64) - np.repeat(offs, cnt1)
+        ridx = np.where(np.repeat(cnt, cnt1) == 0, -1,
+                        order[np.minimum(np.repeat(lo, cnt1) + pos,
+                                         len(rs) - 1 if len(rs) else 0)])
+        return lidx, ridx
+    lidx = np.repeat(np.arange(len(lc), dtype=np.int64), cnt)
+    offs = np.concatenate([[0], np.cumsum(cnt)])[:-1]
+    pos = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(offs, cnt)
+    ridx = order[np.repeat(lo, cnt) + pos]
+    return lidx, ridx
+
+
+def _sort_key_float(r: ExprResult, desc: bool) -> np.ndarray:
+    v = np.asarray(r.values)
+    if r.dbtype == DBType.VARCHAR:
+        k = v.astype(np.float64)
+        nulls = v == 0
+    else:
+        k = r.as_float(np)
+        nulls = _res_nulls(r)
+    k = np.where(nulls, np.inf, -k if desc else k)   # NULLs always last
+    return k
+
+
+_AGG_FLOAT = {"sum", "avg", "median", "var", "std"}
+
+
+def _run_agg(fn: str, val: Optional[ExprResult], gid: np.ndarray, n: int,
+             idx: np.ndarray) -> ExprResult:
+    if fn == "count" and val is None:
+        out = np.bincount(gid, minlength=n).astype(np.int64)
+        return ExprResult(out, DBType.INT64)
+    assert val is not None, f"{fn} requires a value expression"
+    v = np.asarray(val.values)[idx]
+    nulls = _res_nulls(val)[idx]
+    ok = ~nulls
+    if fn == "count":
+        out = np.bincount(gid[ok], minlength=n).astype(np.int64)
+        return ExprResult(out, DBType.INT64)
+    if fn == "count_distinct":
+        pair = gid[ok] * np.int64(2**32) + _rank(v[ok])
+        upair = np.unique(pair)
+        out = np.bincount((upair // np.int64(2**32)).astype(np.int64),
+                          minlength=n).astype(np.int64)
+        return ExprResult(out, DBType.INT64)
+    if fn in ("min", "max"):
+        if val.dbtype == DBType.VARCHAR:
+            init = np.iinfo(np.int64).max if fn == "min" else 0
+            out = np.full(n, init, dtype=np.int64)
+            op = np.minimum if fn == "min" else np.maximum
+            op.at(out, gid[ok], v[ok].astype(np.int64))
+            out = np.where(out == init, 0, out).astype(np.int32)
+            return ExprResult(out, DBType.VARCHAR, heap=val.heap)
+        f = val.as_float(np)[idx]
+        out = np.full(n, np.inf if fn == "min" else -np.inf)
+        op = np.minimum if fn == "min" else np.maximum
+        op.at(out, gid[ok], f[ok])
+        empty = np.isinf(out)
+        if val.dbtype in (DBType.INT32, DBType.INT64, DBType.DATE,
+                          DBType.DECIMAL) and not empty.any():
+            enc = out * (10 ** val.scale) if val.dbtype == DBType.DECIMAL \
+                else out
+            return ExprResult(
+                np.round(enc).astype(STORAGE_DTYPE[val.dbtype]),
+                val.dbtype, scale=val.scale)
+        out = np.where(empty, np.nan, out)
+        return ExprResult(out, DBType.FLOAT64)
+    f = val.as_float(np)[idx]
+    fz = np.where(nulls, 0.0, f)
+    cnt = np.bincount(gid[ok], minlength=n).astype(np.float64)
+    if fn == "sum":
+        out = np.bincount(gid, weights=fz, minlength=n)
+        out = np.where(cnt == 0, np.nan, out)
+        return ExprResult(out, DBType.FLOAT64)
+    if fn == "avg":
+        s = np.bincount(gid, weights=fz, minlength=n)
+        out = s / np.maximum(cnt, 1)
+        out = np.where(cnt == 0, np.nan, out)
+        return ExprResult(out, DBType.FLOAT64)
+    if fn in ("var", "std"):
+        s = np.bincount(gid, weights=fz, minlength=n)
+        s2 = np.bincount(gid, weights=fz * fz, minlength=n)
+        m = s / np.maximum(cnt, 1)
+        var = s2 / np.maximum(cnt, 1) - m * m
+        var = np.maximum(var, 0.0)
+        out = np.sqrt(var) if fn == "std" else var
+        out = np.where(cnt == 0, np.nan, out)
+        return ExprResult(out, DBType.FLOAT64)
+    if fn == "median":
+        # blocking op (paper Fig. 2): per-group sort then pick middles
+        ordr = np.lexsort((f, np.where(ok, gid, n)))
+        g_sorted = np.where(ok, gid, n)[ordr]
+        f_sorted = f[ordr]
+        starts = np.searchsorted(g_sorted, np.arange(n), "left")
+        ends = np.searchsorted(g_sorted, np.arange(n), "right")
+        m = ends - starts
+        midlo = starts + np.maximum(m - 1, 0) // 2
+        midhi = starts + m // 2
+        safe = m > 0
+        out = np.where(
+            safe,
+            0.5 * (f_sorted[np.minimum(midlo, len(f_sorted) - 1)]
+                   + f_sorted[np.minimum(midhi, len(f_sorted) - 1)]),
+            np.nan)
+        return ExprResult(out, DBType.FLOAT64)
+    if fn == "first":
+        _, fpos = np.unique(gid, return_index=True)
+        out = v[fpos]
+        return ExprResult(out, val.dbtype, heap=val.heap, scale=val.scale)
+    raise ValueError(fn)
+
+
+def _rank(v: np.ndarray) -> np.ndarray:
+    _, inv = np.unique(v, return_inverse=True)
+    return inv.astype(np.int64)
+
+
+def _result_chunk(r: ExprResult, sl: slice) -> np.ndarray:
+    """Storage-dtype conversion + NULL filling for one slice of a result
+    column."""
+    v = np.asarray(r.values)[sl]
+    t = r.dbtype
+    want = STORAGE_DTYPE[t]
+    if v.dtype != want:
+        if is_float(t):
+            v = v.astype(want)
+        else:
+            vv = v.astype(np.float64) if v.dtype.kind == "f" else v
+            v = np.where(np.isnan(vv), NULL_SENTINEL[t], vv).astype(want) \
+                if v.dtype.kind == "f" else v.astype(want)
+    if r.null is not None:
+        nl = np.asarray(r.null)[sl]
+        if nl.any():
+            if is_float(t):
+                v = np.where(nl, np.nan, v)
+            else:
+                v = np.where(nl, NULL_SENTINEL[t], v).astype(want)
+    return v.astype(want, copy=False)
+
+
+# ---------------------------------------------------------------------------
+# program interpreter
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ExecStats:
+    instructions: int = 0
+    index_hits: int = 0
+    imprint_blocks_skipped: int = 0
+    rows_scanned: int = 0
+    spilled_ops: int = 0          # blocking ops routed to the spill tier
+    varchar_spills: int = 0       # spilled ops whose keys include VARCHAR
+    result_spills: int = 0        # final tables streamed to memmapped cols
+    plan_repr: str = ""           # physical-plan EXPLAIN text of this query
+    # per-query spill-pipeline deltas (the BufferManager's counters are
+    # database-lifetime cumulative; these isolate this executor's programs).
+    # Best-effort under concurrency: the counters are shared per database,
+    # so queries spilling simultaneously cross-attribute each other's bytes.
+    bytes_spilled_raw: int = 0          # pre-codec bytes this query spilled
+    bytes_spilled_compressed: int = 0   # post-codec bytes actually written
+    prefetch_hits: int = 0              # partitions loaded ahead of use
+    repartitions: int = 0               # oversized partitions split again
+    # device tier (device_cache.py / parallel.DistributedScanAgg): same
+    # best-effort per-query deltas of the shared BufferStats counters
+    device_tier: str = ""               # "", "resident", "streamed",
+                                        # "join-resident", "join-streamed"
+    device_sorted: bool = False         # ORDER BY fused onto the device
+                                        # assembly (host suffix sort skipped)
+    device_cache_hits: int = 0          # blocks served without a transfer
+    device_prefetch_hits: int = 0       # blocks whose copy was issued ahead
+    device_evictions: int = 0           # blocks evicted under budget pressure
+    device_bytes_h2d: int = 0           # host→device bytes this query moved
+    device_writebacks: int = 0          # dirty blocks copied back to host
+    device_bytes_peak: int = 0          # manager high-water mark (lifetime)
+    # serving layer (serving.py): per-query view of the concurrent path
+    plan_cache_hit: bool = False        # lowering skipped via the plan cache
+    admission_wait_ms: float = 0.0      # time queued at the admission gate
+    reserved_bytes: int = 0             # host reservation the gate granted
+    reserved_device_bytes: int = 0      # device reservation granted
+    shared_scan_attaches: int = 0       # blocks served by another query's
+                                        # in-flight build/upload
+    observed_group_card: Optional[int] = None  # dense group count this
+                                        # query's aggregate actually saw
+    # imprint-driven data skipping (physplan.SkipSet): per-query deltas of
+    # the shared BufferStats counters, same best-effort caveat as above
+    blocks_skipped: int = 0             # imprint blocks never read/uploaded
+    bytes_skipped_h2d: int = 0          # host→device bytes skipping avoided
+    bytes_skipped_spill: int = 0        # column bytes kept out of the
+                                        # scan→filter→partition streams
+    # delta-store ingest (delta.py): per-query deltas of the shared counters
+    delta_bytes_h2d: int = 0            # h2d bytes for delta-tail blocks
+    delta_rows: int = 0                 # delta-tail rows this query scanned
+    compactions: int = 0                # tail folds triggered while running
+
+
+# Per-query deltas of the database-lifetime BufferStats counters: the field
+# names are shared between BufferStats and ExecStats, so threading is one
+# list instead of hand-maintained positional tuples at every call site.
+SPILL_DELTA_FIELDS = ("bytes_spilled_raw", "bytes_spilled_compressed",
+                      "prefetch_hits", "repartitions", "result_spills")
+DEVICE_DELTA_FIELDS = ("device_cache_hits", "device_prefetch_hits",
+                       "device_evictions", "device_bytes_h2d",
+                       "device_writebacks", "shared_scan_attaches")
+SKIP_DELTA_FIELDS = ("blocks_skipped", "bytes_skipped_h2d",
+                     "bytes_skipped_spill")
+INGEST_DELTA_FIELDS = ("delta_bytes_h2d", "delta_rows", "compactions")
+
+
+def stats_base(buffer_stats, fields) -> tuple:
+    return tuple(getattr(buffer_stats, f) for f in fields)
+
+
+def stats_apply_delta(exec_stats, buffer_stats, base, fields) -> None:
+    for f, b in zip(fields, base):
+        setattr(exec_stats, f,
+                getattr(exec_stats, f) + getattr(buffer_stats, f) - b)
+
+
+class Executor:
+    """Sequential host-tier interpreter.  parallel.py subclasses it to run
+    the scan-agg core on the device tier.
+
+    Tier routing is NOT decided here: every plan is lowered through
+    ``physplan.plan_physical`` first.  Without a host memory budget every
+    blocking operator runs in memory."""
+
+    def __init__(self, database):
+        self.db = database
+        self.stats = ExecStats()
+        self.bufman = getattr(database, "buffer_manager", None)
+        self.policy = TierPolicy.for_db(database)
+
+    # -- entry points -------------------------------------------------------
+    # transfers-ownership: the ticket is released by the caller's
+    # `with self._admitted(phys):` exit, not here
+    def _admitted(self, phys):
+        """Reserve the plan's summed per-operator budget estimates at the
+        database's admission gate before running (serving.AdmissionGate);
+        returns a released-on-exit ticket, or a no-op one when the
+        database has no gate (suffix views, bare test harnesses)."""
+        gate = getattr(self.db, "admission_gate", None)
+        if gate is None:
+            import contextlib
+            return contextlib.nullcontext()
+        host, device = phys.total_reservations()
+        ticket = gate.admit(host, device)
+        self.stats.admission_wait_ms = ticket.waited * 1000.0
+        self.stats.reserved_bytes = ticket.host_bytes
+        self.stats.reserved_device_bytes = ticket.device_bytes
+        if ticket.waited and self.bufman is not None:
+            self.bufman.bump(admission_waits=1)
+        return ticket
+
+    def _plan_feedback(self, plan: PlanNode, distributed: bool) -> None:
+        """Report the observed group cardinality back to the plan cache so
+        the next lowering of this plan shape annotates its aggregate from
+        what actually happened, not the level-1 row estimate."""
+        cache = getattr(self.db, "plan_cache", None)
+        n = self.stats.observed_group_card
+        if cache is not None and n is not None:
+            from .serving import PlanCache
+            cache.note_group_card(PlanCache.shape_key(plan, distributed), n)
+
+    def execute(self, plan: PlanNode, do_optimize: bool = True):
+        from .serving import lower_cached
+        phys, rendered, hit = lower_cached(self.db, plan,
+                                           do_optimize=do_optimize)
+        self.policy = phys.policy
+        self.stats.plan_repr = rendered
+        self.stats.plan_cache_hit = hit
+        prog = compile_plan(phys.plan, self.db.catalog)
+        with self._admitted(phys):
+            result = self.run_program(prog)
+        self._plan_feedback(plan, False)
+        return result
+
+    def run_program(self, prog: MALProgram):
+        regs: dict[str, Any] = {}
+        result = None
+        bm = self.bufman
+        fields = (SPILL_DELTA_FIELDS + DEVICE_DELTA_FIELDS
+                  + SKIP_DELTA_FIELDS + INGEST_DELTA_FIELDS)
+        base = None if bm is None else stats_base(bm.stats, fields)
+        for ins in prog.instrs:
+            self.stats.instructions += 1
+            out = self._dispatch(ins, regs)
+            if ins.op == "result":
+                result = out
+            else:
+                if len(ins.out) == 1:
+                    regs[ins.out[0]] = out
+                else:
+                    for name, val in zip(ins.out, out):
+                        regs[name] = val
+        if base is not None:
+            stats_apply_delta(self.stats, bm.stats, base, fields)
+        return result
+
+    # -- dispatch ------------------------------------------------------------
+    def _dispatch(self, ins: Instr, regs):
+        fn = getattr(self, f"_op_{ins.op}")
+        return fn(ins, regs)
+
+    def _op_load(self, ins, regs):
+        table, cname = ins.payload
+        t = self.db.catalog.table(table)
+        col = t.column(cname)
+        self.stats.rows_scanned += len(col)
+        self._note_delta_scan(table, t)
+        return ExprResult(col.data, col.dbtype, None, col.heap, col.scale)
+
+    def _note_delta_scan(self, name: str, t) -> None:
+        """Count a scanned table's merge-on-read tail once per program."""
+        dr = t.delta_rows
+        if not dr:
+            return
+        noted = getattr(self, "_delta_noted", None)
+        if noted is None:
+            noted = self._delta_noted = set()
+        if name in noted:
+            return
+        noted.add(name)
+        if self.bufman is not None:
+            self.bufman.bump(delta_rows=dr)
+        else:
+            self.stats.delta_rows += dr
+
+    def _ctx(self, binding: dict[str, str], regs) -> EvalContext:
+        arrays, meta = {}, {}
+        for cname, reg in binding.items():
+            r: ExprResult = regs[reg]
+            arrays[cname] = np.asarray(r.values)
+            meta[cname] = (r.dbtype, r.heap, r.scale)
+        ctx = EvalContext(arrays, meta, xp=np)
+        return ctx
+
+    def _op_expr(self, ins, regs):
+        p = ins.payload
+        return p["expr"].eval(self._ctx(p["binding"], regs))
+
+    def _op_select(self, ins, regs):
+        p = ins.payload
+        expr = p["expr"]
+        r = expr.eval(self._ctx(p["binding"], regs))
+        vals = np.asarray(r.values) != 0
+        if r.null is not None:
+            vals = vals & ~np.asarray(r.null)
+        return vals
+
+    def _op_mand(self, ins, regs):
+        return regs[ins.args[0]] & regs[ins.args[1]]
+
+    def _op_midx(self, ins, regs):
+        return np.nonzero(regs[ins.args[0]])[0]
+
+    def _op_take(self, ins, regs):
+        r: ExprResult = regs[ins.args[0]]
+        idx = regs[ins.args[1]]
+        return ExprResult(np.asarray(r.values)[idx], r.dbtype,
+                          None if r.null is None else np.asarray(r.null)[idx],
+                          r.heap, r.scale)
+
+    def _op_slice(self, ins, regs):
+        r: ExprResult = regs[ins.args[0]]
+        n = ins.payload
+        return ExprResult(np.asarray(r.values)[:n], r.dbtype,
+                          None if r.null is None else np.asarray(r.null)[:n],
+                          r.heap, r.scale)
+
+    def _op_fetch(self, ins, regs):
+        r: ExprResult = regs[ins.args[0]]
+        idx = regs[ins.args[1]]
+        fill = bool(ins.payload and ins.payload.get("fill_null"))
+        v = np.asarray(r.values)
+        if fill:
+            safe = np.maximum(idx, 0)
+            out = v[safe]
+            sent = NULL_SENTINEL[r.dbtype]
+            out = np.where(idx < 0, sent, out)
+            nl = idx < 0
+            if r.null is not None:
+                nl = nl | np.where(idx < 0, True, np.asarray(r.null)[safe])
+            return ExprResult(out, r.dbtype, nl, r.heap, r.scale)
+        return ExprResult(v[idx], r.dbtype,
+                          None if r.null is None else np.asarray(r.null)[idx],
+                          r.heap, r.scale)
+
+    def _op_join(self, ins, regs):
+        p = ins.payload
+        nk = p["n_keys"]
+        lres = [regs[a] for a in ins.args[:nk]]
+        rres = [regs[a] for a in ins.args[nk:2 * nk]]
+        rest = list(ins.args[2 * nk:])
+        lmask = regs[rest.pop(0)] if p["lmask"] else None
+        rmask = regs[rest.pop(0)] if p["rmask"] else None
+
+        lc, rc, lnull, rnull = _join_codes(lres, rres, nk)
+        lsel = np.nonzero((~lnull) if lmask is None else (lmask & ~lnull))[0]
+        rsel = np.nonzero((~rnull) if rmask is None else (rmask & ~rnull))[0]
+        lc, rc = lc[lsel], rc[rsel]
+
+        how = p["how"]
+        lidx, ridx = _hash_join(lc, rc, how)
+        if how in ("semi", "anti"):
+            return (lsel[lidx],)
+        glidx = lsel[lidx]
+        gridx = np.where(ridx < 0, -1, rsel[np.maximum(ridx, 0)]) \
+            if how == "left" else rsel[ridx]
+        return glidx, gridx
+
+    def _op_group(self, ins, regs):
+        p = ins.payload
+        nk = p["n_keys"]
+        keys = [regs[a] for a in ins.args[:nk]]
+        mask = regs[ins.args[nk]] if p["has_mask"] else None
+        some = keys[0] if keys else (
+            regs[ins.args[0]] if p.get("rep") else None)
+        nrows = len(np.asarray(some.values)) if some is not None else (
+            len(mask) if mask is not None else 0)
+        idx = np.nonzero(mask)[0] if mask is not None \
+            else np.arange(nrows, dtype=np.int64)
+        if nk == 0:
+            gid = np.zeros(len(idx), dtype=np.int64)
+            return gid, 1, idx
+        codes, _ = _factorize(keys, idx)
+        gid, n, rep = _dense_gid(codes)
+        # runtime statistic for the plan cache's cardinality feedback: the
+        # group count this aggregate actually produced
+        prev = self.stats.observed_group_card
+        self.stats.observed_group_card = n if prev is None else max(prev, n)
+        return gid, n, idx
+
+    def _op_gkey(self, ins, regs):
+        key: ExprResult = regs[ins.args[0]]
+        gid = regs[ins.args[1]]
+        n = regs[ins.args[2]]
+        idx = regs[ins.args[3]]
+        _, rep = np.unique(gid, return_index=True)
+        pos = idx[rep]
+        v = np.asarray(key.values)[pos]
+        return ExprResult(v, key.dbtype,
+                          None if key.null is None
+                          else np.asarray(key.null)[pos],
+                          key.heap, key.scale)
+
+    def _op_agg(self, ins, regs):
+        p = ins.payload
+        if p["has_value"]:
+            val = regs[ins.args[0]]
+            gid, n, idx = (regs[a] for a in ins.args[1:4])
+        else:
+            val = None
+            gid, n, idx = (regs[a] for a in ins.args[0:3])
+        return _run_agg(p["fn"], val, gid, n, idx)
+
+    def _op_sort(self, ins, regs):
+        p = ins.payload
+        keys = [regs[a] for a in ins.args]
+        descs = p["descs"]
+        arrs = [
+            _sort_key_float(r, d) for r, d in zip(keys, descs)
+        ]
+        idx = np.lexsort(tuple(reversed(arrs)))
+        if p["limit"] is not None:
+            idx = idx[:p["limit"]]
+        return idx
+
+    def _op_result(self, ins, regs):
+        from .types import ColumnSchema, TableSchema
+        names = ins.payload
+        results = [regs[reg] for reg in ins.args]
+        cols = {}
+        schemas = []
+        for name, r in zip(names, results):
+            v = _result_chunk(r, slice(None))
+            cols[name] = Column(r.dbtype, v, heap=r.heap, scale=r.scale)
+            schemas.append(ColumnSchema(name, r.dbtype, scale=r.scale))
+        from .table import Table
+        return Table(TableSchema("result", tuple(schemas)), cols)
