@@ -1,5 +1,5 @@
-"""Device-tier execution of the scan-agg core on one CUDA card (paper
-Fig. 2: per-chunk partial aggregates merged by an order-fixed carry).
+"""Device-tier execution on one CUDA card (paper Fig. 2: per-chunk partial
+aggregates merged by an order-fixed carry).
 
 * ``DistributedScanAgg`` — the device tier for the hot OLAP pattern
   Aggregate(Filter*(Scan)) with dense group domains: it streams
@@ -13,19 +13,23 @@ Fig. 2: per-chunk partial aggregates merged by an order-fixed carry).
   behaviour differs (resident: blocks stay cached across queries;
   streamed: LRU eviction recycles them, double-buffered prefetch overlaps
   the next batch's host→device copy with the current batch's step).
+* ``DistributedJoinAgg`` — the device join tier for Aggregate(inner-join
+  tree) (TPC-H Q3): dense build tables are built bottom-up from their own
+  batch streams, then the probe table streams through the scan-agg carry
+  loop with presence gating against every probe-adjacent table, and the
+  grouped result is assembled (and sorted) in device memory.
 * ``ParallelExecutor`` — Executor subclass that consumes the physical plan
-  (``physplan.plan_physical``): a scan-agg core annotated
-  device-resident/device-streamed runs through ``DistributedScanAgg``, a
+  (``physplan.plan_physical``): a core annotated device-resident /
+  device-streamed / device-join runs through the classes above, a
   host-side suffix (ORDER BY / LIMIT / projection / HAVING) executes over
-  the assembled aggregate, and everything else goes to the sequential host
-  program.
+  the assembled aggregate unless the sort was fused onto the device, and
+  everything else goes to the sequential host program.
 
-The per-batch step is float64 torch operations around ONE hand-written
-kernel launch: the filter mask, the dense mixed-radix group id and every
-aggregate's value column are torch operations, and every sum-like partial
-(``cnt_star``, per-aggregate counts, sums for sum/avg, in
-``partial_layout`` order) comes from one kernel.  The kernel route is fixed
-when the step is built, from the spec and the table version:
+Each batch step is float64 torch operations around hand-written kernel
+launches.  A scan-agg step takes every sum-like partial (``cnt_star``,
+per-aggregate counts, sums for sum/avg, in ``partial_layout`` order) from
+ONE kernel, on a route fixed when the step is built, from the spec and the
+table version:
 
 * ``scan_agg`` (``kernels/scan_agg``): no GROUP BY, every conjunct a simple
   range on a numeric column, every sum/avg a column or a product of two
@@ -33,11 +37,19 @@ when the step is built, from the spec and the table version:
 * ``hash_group`` (``kernels/hash_group``): every other spec, with masked
   rows sent to the trash group ``n_groups`` — TPC-H Q1.
 
-min/max partials stay torch ``scatter_reduce`` (the reference computes
-them outside any kernel too).  Nothing on the device path catches an
-exception: a build, launch or kernel failure propagates to the caller; only
-the planner's plan-time decision (``choose_device_tier`` → ``"host"``) puts
-a query on the host tier.
+The join tier's steps take ``radix_probe`` (``kernels/radix_join``) for
+every presence gate and ``radix_build`` for the build tables and for the
+probe's grouped partials, whose group domain (the orders key domain, 1.5M
+at SF 1) is far past what ``hash_group`` takes.  Device assembly gathers
+the group build's payload with ``radix_probe`` and sorts with the bitonic
+``sort`` kernel (``kernels/sort``).  min/max partials stay torch
+``scatter_reduce`` (the reference computes them outside any kernel too).
+
+Nothing on the device path catches an exception: a build, launch or kernel
+failure propagates to the caller.  Two outcomes put a query on the host
+tier: the planner's plan-time decision (``"host"``), and the device join's
+duplicate-build-key witness (``_DeviceJoinFallback``), a data precondition
+the host join handles.
 """
 
 from __future__ import annotations
@@ -50,20 +62,20 @@ import numpy as np
 import torch
 
 from ..kernels.hash_group.kernel import hash_group
+from ..kernels.radix_join.kernel import radix_build, radix_probe
 from ..kernels.scan_agg.kernel import MAX_COLS, MAX_PAIRS, scan_agg
+from ..kernels.sort.ops import lexsort
 from .device_cache import (DeviceBlockKeys, DeviceBudgetError,
                            DeviceBufferManager)
 from .executor import Executor, compile_plan
 from .expression import (BinOp, Col, EvalContext, Expr, ExprResult,
                          TorchNamespace)
-from .physplan import (AGG_RESULT_NAME, PhysicalPlan, ScanAggSpec,
-                       TIER_DEVICE_RESIDENT, _simple_range,
-                       choose_device_tier, partial_layout, scan_agg_geometry)
+from .physplan import (AGG_RESULT_NAME, DeviceBuild, JoinAggSpec,
+                       PhysicalPlan, ScanAggSpec, TIER_DEVICE_RESIDENT,
+                       _simple_range, choose_device_tier, partial_layout,
+                       scan_agg_geometry)
 from .relalg import PlanNode
 from .types import DBType, NULL_SENTINEL
-
-ROUTE_SCAN_AGG = "scan_agg"
-ROUTE_HASH_GROUP = "hash_group"
 
 # column types whose decoded float64 value the scan_agg route compares
 _RANGE_TYPES = (DBType.INT32, DBType.INT64, DBType.DATE, DBType.DECIMAL,
@@ -162,18 +174,24 @@ def _eval_torch(expr: Expr, arrays: dict, meta: dict, xp) -> ExprResult:
     return expr.eval(EvalContext(arrays, meta, xp=xp))
 
 
-def _fragment_mask_gid(spec: ScanAggSpec, meta: dict, valid, arrays, xp):
-    """The filter mask and the dense mixed-radix gid (torch operations).
-    The key code is clamped into its domain in float64 before the int32
-    narrowing, which is what the reference's cast-then-clip computes for
-    every in-domain key."""
+def _conjunct_mask(conjuncts, arrays: dict, meta: dict, valid, xp):
+    """``valid`` AND every conjunct (a NULL conjunct value is false)."""
     mask = valid
-    for conj in spec.conjuncts:
+    for conj in conjuncts:
         r = _eval_torch(conj, arrays, meta, xp)
         m = r.values != 0
         if r.null is not None:
             m = m & ~r.null
         mask = mask & m
+    return mask
+
+
+def _fragment_mask_gid(spec: ScanAggSpec, meta: dict, valid, arrays, xp):
+    """The filter mask and the dense mixed-radix gid (torch operations).
+    The key code is clamped into its domain in float64 before the int32
+    narrowing, which is what the reference's cast-then-clip computes for
+    every in-domain key."""
+    mask = _conjunct_mask(spec.conjuncts, arrays, meta, valid, xp)
     gid = torch.zeros(valid.shape, dtype=torch.int32, device=valid.device)
     for k, (off, card) in zip(spec.group_keys, spec.key_domains):
         t, _heap, _scale = meta[k]
@@ -201,10 +219,13 @@ def _minmax_partials(spec: ScanAggSpec, evals: dict, gid):
     return extras
 
 
-def _hash_group_partials(spec: ScanAggSpec, meta: dict, valid, arrays, xp):
-    """``hash_group`` route: stack the sum-like value columns and sum them
-    per group in one kernel launch."""
-    mask, gid = _fragment_mask_gid(spec, meta, valid, arrays, xp)
+def _grouped_partials(spec: ScanAggSpec, meta: dict, mask, gid, arrays, xp,
+                      group_sum):
+    """Stack the sum-like value columns and sum them per group in one
+    launch of ``group_sum`` (``hash_group`` or ``radix_build``: the same
+    function of (code, vals, n_groups)), masked rows sent to the trash code
+    ``n_groups``; then the min/max partials.  Returns the raw partial
+    matrix in ``partial_layout`` order."""
     sum_cols = [mask.to(torch.float64)]               # cnt_star
     evals = {}
     for i, a in enumerate(spec.aggs):
@@ -219,8 +240,12 @@ def _hash_group_partials(spec: ScanAggSpec, meta: dict, valid, arrays, xp):
             sum_cols.append(torch.where(ok, f, 0.0))
     vals = torch.stack(sum_cols)                      # (n_sum, rows)
     trash = torch.where(mask, gid, spec.n_groups).to(torch.int32)
-    seg = hash_group(trash, vals, spec.n_groups)      # (n_groups, n_sum)
-    return seg, _minmax_partials(spec, evals, gid)
+    seg = group_sum(trash, vals, spec.n_groups)       # (n_groups, n_sum)
+    extras = _minmax_partials(spec, evals, gid)
+    if not extras:
+        return seg
+    return torch.cat([seg] + [extras[c][:, None] for c in sorted(extras)],
+                     dim=1)
 
 
 def _as_float(values, meta_entry, xp):
@@ -237,11 +262,9 @@ def make_partial_fragment(spec: ScanAggSpec, meta: dict, device,
     if route is None:
         def fragment(valid, *cols):
             arrays = dict(zip(spec.columns, cols))
-            seg, extras = _hash_group_partials(spec, meta, valid, arrays, xp)
-            if not extras:
-                return seg
-            return torch.cat(
-                [seg] + [extras[c][:, None] for c in sorted(extras)], dim=1)
+            mask, gid = _fragment_mask_gid(spec, meta, valid, arrays, xp)
+            return _grouped_partials(spec, meta, mask, gid, arrays, xp,
+                                     hash_group)
         return fragment
 
     lo = torch.tensor([b[0] for b in route.bounds], dtype=torch.float64,
@@ -314,15 +337,20 @@ def build_batch_step(spec: ScanAggSpec, meta: dict, device,
     g, k = spec.n_groups, len(layout.kinds)
 
     def step(carry, *args):
-        part = frag(*args)
-        return torch.where(kinds == 0, carry + part,
-                           torch.where(kinds == 1, torch.minimum(carry, part),
-                                       torch.maximum(carry, part)))
+        return _combine(kinds, carry, frag(*args))
 
     def init():
         return identity.expand(g, k).clone()
 
     return init, step
+
+
+def _combine(kinds, carry, part):
+    """The carry merge, out of place: add / min / max per column (``kinds``
+    0 / 1 / 2, from ``partial_layout``)."""
+    return torch.where(kinds == 0, carry + part,
+                       torch.where(kinds == 1, torch.minimum(carry, part),
+                                   torch.maximum(carry, part)))
 
 
 _STEP_CACHE: dict = {}
@@ -366,7 +394,144 @@ def _cached_batch_step(spec: ScanAggSpec, meta: dict, device,
 
 
 # ---------------------------------------------------------------------------
-# device-resident assembly (Q1's fused ORDER BY)
+# device join tier: build / probe steps (torch operations around radix_join)
+# ---------------------------------------------------------------------------
+
+
+def _join_edge_mask(arrays, meta: dict, mask, edge_cols, domains, btabs):
+    """Probe-side join gating: for each equi-join edge, exclude rows whose
+    local key is NULL, outside the build's dense domain, or absent from
+    the build table (presence lane 0 == 0, read by one ``radix_probe``
+    launch).  The domain comparison runs in float64 *before* the int32
+    narrowing — an out-of-domain key must never alias an in-domain code;
+    it gets the code -1, which the probe reads as a miss."""
+    for cname, (off, card), btab in zip(edge_cols, domains, btabs):
+        kv = arrays[cname]
+        sent = NULL_SENTINEL[meta[cname][0]]
+        codef = kv.to(torch.float64) - off
+        ok = (kv != sent) & (codef >= 0) & (codef < card)
+        code = torch.where(ok, codef, -1.0).to(torch.int32)
+        mask = mask & (radix_probe(code, btab)[:, 0] > 0)
+    return mask
+
+
+def build_join_build_step(build: DeviceBuild, meta: dict, device,
+                          child_domains):
+    """(init_fn, step_fn) for one join build table:
+    ``step(btab, child_btabs, valid, *cols) -> btab'``.
+
+    One batch of the build table's stream is filtered (its own conjuncts +
+    NULL/domain/presence gating against already-built child tables) and
+    scatter-added into the (card, 1 + n_payload) build matrix by one
+    ``radix_build`` launch: lane 0 counts presence (the runtime uniqueness
+    witness — any slot > 1 means duplicate build keys and the query falls
+    back to the host join), the payload lanes hold the build's group-key
+    columns as float64 (unique keys make the add a set; the integer-coded
+    payload types decode exactly).  Masked rows take the trash code
+    ``card``.  All-add combine: the same carry idiom as the scan-agg tier,
+    so dirty-writeback/eviction compose unchanged."""
+    off, card = build.domain
+    width = 1 + len(build.payload)
+    edge_cols = [c for _, c in build.probe_edges]
+    xp = TorchNamespace(device)
+
+    def step(btab, child_btabs, valid, *cols):
+        arrays = dict(zip(build.columns, cols))
+        mask = _conjunct_mask(build.conjuncts, arrays, meta, valid, xp)
+        kv = arrays[build.key]
+        sent = NULL_SENTINEL[meta[build.key][0]]
+        codef = kv.to(torch.float64) - off
+        mask = mask & (kv != sent) & (codef >= 0) & (codef < card)
+        mask = _join_edge_mask(arrays, meta, mask, edge_cols,
+                               child_domains, child_btabs)
+        lanes = [mask.to(torch.float64)]
+        for p in build.payload:
+            lanes.append(torch.where(mask, arrays[p].to(torch.float64),
+                                     0.0))
+        code = torch.where(mask, codef, float(card)).to(torch.int32)
+        return btab + radix_build(code, torch.stack(lanes), card)
+
+    def init():
+        return torch.zeros((card, width), dtype=torch.float64,
+                           device=device)
+
+    return init, step
+
+
+def _cached_join_build_step(build: DeviceBuild, meta: dict, device,
+                            batch_rows: int, child_domains):
+    key = ("jbuild", build.table, repr(build.conjuncts), build.key,
+           build.domain, tuple(build.payload), tuple(build.probe_edges),
+           tuple(child_domains), _meta_key(build.columns, meta),
+           batch_rows, str(device))
+    with _STEP_CACHE_LOCK:
+        if key not in _STEP_CACHE:
+            _STEP_CACHE[key] = build_join_build_step(
+                build, meta, device, child_domains)
+        return _STEP_CACHE[key]
+
+
+def build_join_probe_step(spec: JoinAggSpec, meta: dict, device):
+    """(init_fn, step_fn) for the probe (fact) side of a device join:
+    ``step(carry, edge_btabs, valid, *cols) -> carry'``.
+
+    The probe phase IS the scan-agg batch step over the probe table —
+    identical prologue, partials and carry combine — plus presence gating
+    through every probe-adjacent build matrix.  The gid is the group
+    build's key code; rows with NULL / out-of-domain / unmatched keys are
+    masked and contribute the combine identity.  The route is fixed here:
+    the sum-like partials take ``radix_build``, because the group domain
+    is the build key's (1.5M codes for Q3 at SF 1), far past the
+    ``hash_group`` cap."""
+    pspec = spec.probe_spec()
+    layout = partial_layout(pspec)
+    domains = [spec.builds[bi].domain for bi, _ in spec.probe_edges]
+    edge_cols = [c for _, c in spec.probe_edges]
+    xp = TorchNamespace(device)
+    kinds = torch.as_tensor(layout.kinds, device=device)
+    identity = torch.as_tensor(layout.init, device=device)
+    g, k = pspec.n_groups, len(layout.kinds)
+
+    def step(carry, edge_btabs, valid, *cols):
+        arrays = dict(zip(pspec.columns, cols))
+        mask, gid = _fragment_mask_gid(pspec, meta, valid, arrays, xp)
+        mask = _join_edge_mask(arrays, meta, mask, edge_cols, domains,
+                               edge_btabs)
+        part = _grouped_partials(pspec, meta, mask, gid, arrays, xp,
+                                 radix_build)
+        return _combine(kinds, carry, part)
+
+    def init():
+        return identity.expand(g, k).clone()
+
+    return init, step
+
+
+def _cached_join_probe_step(spec: JoinAggSpec, meta: dict, device,
+                            batch_rows: int):
+    pspec = spec.probe_spec()
+    key = ("jprobe", spec.probe_table, repr(pspec.conjuncts),
+           tuple(pspec.group_keys), tuple(pspec.key_domains),
+           tuple((a.fn, repr(a.expr)) for a in pspec.aggs),
+           tuple(spec.probe_edges),
+           tuple(b.domain for b in spec.builds),
+           _meta_key(pspec.columns, meta), pspec.n_groups,
+           batch_rows, str(device))
+    with _STEP_CACHE_LOCK:
+        if key not in _STEP_CACHE:
+            _STEP_CACHE[key] = build_join_probe_step(spec, meta, device)
+        return _STEP_CACHE[key]
+
+
+def _dupmax(btab) -> float:
+    """The largest presence count of a build matrix: the uniqueness
+    witness the device join's soundness rests on (> 1 means a duplicate
+    build key)."""
+    return float(btab[:, 0].max())
+
+
+# ---------------------------------------------------------------------------
+# device-resident assembly (the fused ORDER BY of Q1 and Q3)
 # ---------------------------------------------------------------------------
 
 
@@ -412,34 +577,35 @@ def _device_sort_key(v, dbt, scale: int, desc: bool):
     return torch.where(nulls, np.inf, -k if desc else k)
 
 
-def lexsort(keys):
-    """``np.lexsort(tuple(reversed(keys)))`` on the device: the permutation
-    sorting by ``keys[0]`` first, ties by ``keys[1]``, ..., then by index —
-    a chain of stable sorts from the least significant key up."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
-    return perm
-
-
-def build_assemble_step(spec: ScanAggSpec, sort_cols, limit):
+def build_assemble_step(spec: ScanAggSpec, sort_cols, limit,
+                        n_payload: int):
     """Device-resident assembly: finalize the carry, compact it to the
-    non-empty groups and — when an ORDER BY suffix was fused — compute the
-    float sort keys and the (top-``limit``) sort permutation, all in device
-    memory.  Only the compacted (and sorted) rows are fetched to host.
+    non-empty groups, gather the group build's payload lanes (one
+    ``radix_probe`` launch on the compacted gids) and — when an ORDER BY
+    suffix was fused — compute the float sort keys and the
+    (top-``limit``) sort permutation (``sort`` kernel launches), all in
+    device memory.  Only the compacted (and sorted) rows are fetched to
+    host.
 
     ``sort_cols`` is a tuple of ``(source, dbtype, scale, desc)`` where
-    ``source`` is ``("digit", i)`` (mixed-radix group-key digit) or
-    ``("agg", i)``.  Returns ``(gids, finalized_rows)``."""
+    ``source`` is ``("digit", i)`` (mixed-radix group-key digit — for the
+    join tier the single digit IS the build key code), ``("payload", j)``
+    (a build payload lane) or ``("agg", i)``.  Returns
+    ``(gids, finalized_rows, payload_rows)``."""
     doms = spec.key_domains
 
-    def assemble(carry):
+    def assemble(carry, btab=None):
         final = _finalize_rows_torch(spec, carry)
         if spec.group_keys:
             gids = torch.nonzero(carry[:, 0] > 0)[:, 0]
         else:
             gids = torch.zeros(1, dtype=torch.int64, device=carry.device)
         compact = final[gids]
+        if n_payload:
+            pay = radix_probe(gids.to(torch.int32), btab)[:, 1:]
+        else:
+            pay = torch.zeros((gids.shape[0], 0), dtype=torch.float64,
+                              device=carry.device)
         if sort_cols:
             rem = gids
             digits = []
@@ -454,39 +620,43 @@ def build_assemble_step(spec: ScanAggSpec, sort_cols, limit):
                     v = digits[i].to(torch.float64)
                     if dbt != DBType.VARCHAR:
                         v = v + doms[i][0]
+                elif src[0] == "payload":
+                    v = pay[:, src[1]]
                 else:
                     v = compact[:, src[1]]
                 fkeys.append(_device_sort_key(v, dbt, scale, desc))
-            perm = lexsort(fkeys)
-            if limit is not None:
-                perm = perm[:limit]
-            gids, compact = gids[perm], compact[perm]
-        return gids, compact
+            perm = lexsort(fkeys, limit)
+            gids, compact, pay = gids[perm], compact[perm], pay[perm]
+        return gids, compact, pay
 
     return assemble
 
 
-def _cached_assemble_step(spec: ScanAggSpec, sort_cols, limit, device):
+def _cached_assemble_step(spec: ScanAggSpec, sort_cols, limit,
+                          n_payload: int, device):
     key = ("assemble", spec.table, tuple(spec.group_keys),
            tuple(spec.key_domains),
            tuple((a.fn, repr(a.expr)) for a in spec.aggs),
-           spec.n_groups, sort_cols, limit, str(device))
+           spec.n_groups, sort_cols, limit, n_payload, str(device))
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
-            _STEP_CACHE[key] = build_assemble_step(spec, sort_cols, limit)
+            _STEP_CACHE[key] = build_assemble_step(spec, sort_cols, limit,
+                                                   n_payload)
         return _STEP_CACHE[key]
 
 
 # requires-lock: _DEVICE_DISPATCH_LOCK
-def _assemble_on_device(plan: tuple, device, carry):
+def _assemble_on_device(plan: tuple, device, carry, btab=None):
     """Device-resident assembly dispatch: run the finalize / compact /
-    fused-sort step and fetch only the surviving rows.  ``plan`` is
-    ``(spec, sort_cols, limit)`` — data, not a closure, so the dispatch
-    stays inside the lock-annotated call graph."""
-    pspec, sort_cols, limit = plan
-    fn = _cached_assemble_step(pspec, tuple(sort_cols), limit, device)
-    gids, vals = fn(carry)
-    return gids.cpu().numpy(), vals.cpu().numpy()
+    payload-gather / fused-sort step and fetch only the surviving rows.
+    ``plan`` is ``(spec, sort_cols, limit, n_payload)`` — data, not a
+    closure, so the dispatch stays inside the lock-annotated call
+    graph."""
+    pspec, sort_cols, limit, n_payload = plan
+    fn = _cached_assemble_step(pspec, tuple(sort_cols), limit, n_payload,
+                               device)
+    gids, vals, pay = fn(carry, btab)
+    return gids.cpu().numpy(), vals.cpu().numpy(), pay.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -551,10 +721,6 @@ class DistributedScanAgg:
             self.meta[c] = (col.dbtype, col.heap, col.scale)
         # the kernel route is fixed here, from the spec and this version
         self.route = scan_agg_route(spec, self.table)
-
-    @property
-    def route_name(self) -> str:
-        return ROUTE_HASH_GROUP if self.route is None else ROUTE_SCAN_AGG
 
     # -- placement decision ---------------------------------------------------
     def choose_tier(self) -> str:
@@ -714,6 +880,127 @@ class DistributedScanAgg:
                     devman.drop(key)
 
 
+class _DeviceJoinFallback(Exception):
+    """A runtime precondition of the device join failed (duplicate build
+    keys): the executor runs the host join, which is the truth for such
+    data.  The one exception the device path hands to the host tier."""
+
+
+class DistributedJoinAgg:
+    """Streamed device-tier execution of one Aggregate(inner-join tree).
+
+    Orchestrates per-table ``DistributedScanAgg`` block streams through the
+    shared ``DeviceBufferManager``: build matrices are populated bottom-up
+    (each build's batches probe the already-built child matrices, so
+    semi-join filtering folds into the build itself), verified unique
+    (``_dupmax`` — a duplicate build key would double-count and falls back
+    to the host join), then the probe table streams through the scan-agg
+    carry loop with presence gating against every probe-adjacent matrix.
+    Assembly is device-resident: the caller's ``assemble`` plan tuple
+    drives ``_assemble_on_device`` — finalize / compact / payload gather /
+    sort happen in device memory and only the surviving rows are fetched;
+    the (n_groups, K) carry and the (card, 1+P) group-build matrix never
+    reach the host."""
+
+    def __init__(self, db, spec: JoinAggSpec,
+                 batch_rows: Optional[int] = None):
+        self.spec = spec
+        self.pspec = spec.probe_spec()
+        self.probe = DistributedScanAgg(db, self.pspec,
+                                        batch_rows=batch_rows)
+        self.devman = self.probe.devman
+        self.device = self.probe.device
+        # build-side streams: bare column streams (no grouping) — the
+        # build step applies the build's own conjuncts
+        self.builds = [
+            DistributedScanAgg(
+                db, ScanAggSpec(b.table, [], [], [], [], 1,
+                                list(b.columns)),
+                batch_rows=batch_rows)
+            for b in spec.builds]
+        self.delta_rows = self.probe.delta_rows \
+            + sum(s.delta_rows for s in self.builds)
+
+    def run(self, assemble: tuple):
+        with _DEVICE_DISPATCH_LOCK:
+            return self._run_locked(assemble)
+
+    def _run_locked(self, assemble):  # requires-lock: _DEVICE_DISPATCH_LOCK
+        devman = self.devman
+        query_keys: set = set()
+        pinned: set = set()
+        prefetched: set = set()
+        btab_keys: list = []
+        btabs: list = []
+        carry_key = DeviceBlockKeys.carry()
+        query_keys.add(carry_key)
+        try:
+            for b, stream in zip(self.spec.builds, self.builds):
+                child_idx = [ci for ci, _ in b.probe_edges]
+                child_domains = tuple(self.spec.builds[ci].domain
+                                      for ci in child_idx)
+                init_fn, step = _cached_join_build_step(
+                    b, stream.meta, self.device, stream.batch_rows,
+                    child_domains)
+                key = DeviceBlockKeys.carry()
+                btab_keys.append(key)
+                query_keys.add(key)
+                children = [btabs[ci] for ci in child_idx]
+                # build matrices stay pinned for the whole query: later
+                # builds and every probe batch read them (the planner
+                # reserved state_bytes for exactly this residency)
+                btab = devman.adopt(key, init_fn(), nbytes=b.table_bytes,
+                                    dirty=True, pin=True)
+                for _bb, arrs, nxt in stream._stream_batches(
+                        query_keys, pinned, prefetched):
+                    if nxt is not None:
+                        stream._issue_prefetch(nxt, prefetched, query_keys)
+                    btab = step(btab, children, *arrs)
+                    devman.adopt(key, btab, nbytes=b.table_bytes,
+                                 dirty=True, pin=True)
+                # runtime uniqueness witness: the single-key gid is only
+                # sound for unique build keys (one code, one group/row)
+                if _dupmax(btab) > 1.0:
+                    raise _DeviceJoinFallback(
+                        f"duplicate join keys in build table {b.table}")
+                btabs.append(btab)
+            init_fn, pstep = _cached_join_probe_step(
+                self.spec, self.probe.meta, self.device,
+                self.probe.batch_rows)
+            edge_btabs = [btabs[bi] for bi, _ in self.spec.probe_edges]
+            carry = devman.adopt(carry_key, init_fn(),
+                                 nbytes=self.probe.carry_nbytes, dirty=True)
+            for _bb, arrs, nxt in self.probe._stream_batches(
+                    query_keys, pinned, prefetched):
+                # the carry is unpinned between batches so a tight budget
+                # may have evicted it (writeback); re-upload before use
+                if carry_key not in devman:
+                    host = devman.take_host(carry_key)
+                    carry = devman.put(carry_key, host, pin=False,
+                                       dirty=True)
+                    devman.ready(carry_key)
+                devman.pin(carry_key)
+                if nxt is not None:
+                    self.probe._issue_prefetch(nxt, prefetched, query_keys)
+                carry = pstep(carry, edge_btabs, *arrs)
+                devman.unpin(carry_key)
+                devman.adopt(carry_key, carry,
+                             nbytes=self.probe.carry_nbytes, dirty=True)
+            gb = self.spec.group_build
+            return _assemble_on_device(
+                assemble, self.device, carry,
+                btabs[gb] if gb is not None else None)
+        finally:
+            for key in pinned | prefetched:
+                devman.unpin(key)
+            for key in btab_keys + [carry_key]:
+                devman.unpin(key)
+                devman.drop(key)
+            if devman.budget is None:
+                for key in query_keys:
+                    devman.drop(key)
+
+
 # ---------------------------------------------------------------------------
 # executor integration
 # ---------------------------------------------------------------------------
@@ -739,12 +1026,12 @@ class _SuffixDatabase:
 
 
 class ParallelExecutor(Executor):
-    """Routes device-tier plans to ``DistributedScanAgg`` (paper Fig. 2)."""
+    """Routes device-tier plans to ``DistributedScanAgg`` and
+    ``DistributedJoinAgg`` (paper Fig. 2)."""
 
     def __init__(self, database):
         super().__init__(database)
         self.distributed_hits = 0
-        self.last_route = ""            # kernel route of the last device run
 
     def execute(self, plan: PlanNode, do_optimize: bool = True):
         from .serving import lower_cached
@@ -756,8 +1043,14 @@ class ParallelExecutor(Executor):
         self.stats.plan_cache_hit = hit
         with self._admitted(phys):
             if phys.device_tier():
-                # no fallback: a device failure propagates to the caller
-                return self._run_device(phys)
+                # no fallback: a device failure propagates to the caller;
+                # only duplicate build keys (a property of the data that
+                # the host join handles) send the query to the host tier
+                try:
+                    return self._run_device(phys)
+                except _DeviceJoinFallback as dup:
+                    phys.demote_device(str(dup))
+                    self.stats.plan_repr = phys.render()
             prog = compile_plan(phys.plan, self.db.catalog)
             result = self.run_program(prog)
         self._plan_feedback(plan, True)
@@ -790,12 +1083,13 @@ class ParallelExecutor(Executor):
         the sort was fused onto the device (``sort_on_device``), in which
         case assembly returns already-ordered rows and the suffix is
         skipped entirely."""
+        if phys.join_agg is not None:
+            return self._run_join(phys)
         spec = phys.scan_agg
         table = self.db.catalog.table(spec.table)
         agg = DistributedScanAgg(
             self.db, spec,
             batch_rows=getattr(self.db, "device_batch_rows", None))
-        self.last_route = agg.route_name
         tier = "resident" if phys.agg_tier == TIER_DEVICE_RESIDENT \
             else "streamed"
         fields, stats_base = self._stats_window()
@@ -806,13 +1100,13 @@ class ParallelExecutor(Executor):
             sort_cols = self._sort_cols_scan(spec, table,
                                              phys.sort_node.keys)
             if sort_cols is not None:
-                assemble = (spec, sort_cols, phys.sort_node.limit)
+                assemble = (spec, sort_cols, phys.sort_node.limit, 0)
         out = agg.run(tier, assemble=assemble)
         if agg.delta_rows:
             # merge-on-read visibility: the scan consumed a delta tail
             agg.devman.bump(delta_rows=agg.delta_rows)
         if assemble is not None:
-            gids, vals = out
+            gids, vals, _pay = out
             result = self._assemble(spec, vals, table, gids=gids)
         else:
             result = self._assemble(spec, out, table)
@@ -824,6 +1118,67 @@ class ParallelExecutor(Executor):
         self._claim_device(tier, fields, base, end, dm,
                            device_sorted=assemble is not None)
         return result
+
+    # -- device join-agg -------------------------------------------------------
+    def _run_join(self, phys: PhysicalPlan):
+        """Run the physical plan's join-agg core through the device join
+        tier: builds bottom-up, probe stream, device-resident assembly
+        (finalize + compact + payload gather + fused ORDER BY, all in
+        device memory)."""
+        jspec = phys.join_agg
+        agg = DistributedJoinAgg(
+            self.db, jspec,
+            batch_rows=getattr(self.db, "device_batch_rows", None))
+        fields, stats_base = self._stats_window()
+        dm = agg.devman.stats
+        base = stats_base(dm, fields)
+        gb = jspec.group_build
+        n_payload = len(jspec.builds[gb].payload) if gb is not None else 0
+        sort_cols, limit = (), None
+        if phys.sort_on_device:
+            sort_cols = self._sort_cols_join(jspec, phys.sort_node.keys) \
+                or ()
+            if sort_cols:
+                limit = phys.sort_node.limit
+        gids, vals, pay = agg.run((agg.pspec, sort_cols, limit, n_payload))
+        if agg.delta_rows:
+            agg.devman.bump(delta_rows=agg.delta_rows)
+        result = self._assemble_join(jspec, gids, vals, pay)
+        end = stats_base(dm, fields)
+        if phys.suffix_plan is not None and not sort_cols:
+            result = self._run_suffix(phys.suffix_plan, result)
+        self._claim_device("join-" + phys.join_mode, fields, base, end, dm,
+                           device_sorted=bool(sort_cols))
+        return result
+
+    def _sort_cols_join(self, jspec: JoinAggSpec, keys):
+        """Join-core ORDER BY keys: group keys resolve through
+        ``group_sources`` — the build key digit or a payload lane of the
+        group build's matrix; None when a key is unmappable."""
+        gb = jspec.builds[jspec.group_build] \
+            if jspec.group_build is not None else None
+        cols = []
+        agg_names = [a.name for a in jspec.aggs]
+        for col, desc in keys:
+            if col in jspec.group_keys:
+                src = jspec.group_sources[jspec.group_keys.index(col)]
+                table = self.db.catalog.table(gb.table)
+                if src[0] == "key":
+                    c = table.column(gb.key)
+                    cols.append((("digit", 0), c.dbtype, c.scale,
+                                 bool(desc)))
+                else:
+                    c = table.column(gb.payload[src[1]])
+                    cols.append((("payload", src[1]), c.dbtype, c.scale,
+                                 bool(desc)))
+            elif col in agg_names:
+                i = agg_names.index(col)
+                dbt = DBType.INT64 if jspec.aggs[i].fn == "count" \
+                    else DBType.FLOAT64
+                cols.append((("agg", i), dbt, 0, bool(desc)))
+            else:
+                return None
+        return tuple(cols)
 
     def _sort_cols_scan(self, spec: ScanAggSpec, table, keys):
         """Map ORDER BY keys of a scan-agg core onto assembly sort sources
@@ -889,6 +1244,44 @@ class ParallelExecutor(Executor):
                 cols[k] = Column(col.dbtype, kv, scale=col.scale)
             schemas.append(ColumnSchema(k, col.dbtype, scale=col.scale))
         for i, a in enumerate(spec.aggs):
+            v = vals[:, i]
+            if a.fn == "count":
+                cols[a.name] = Column(DBType.INT64, v.astype(np.int64))
+                schemas.append(ColumnSchema(a.name, DBType.INT64))
+            else:
+                cols[a.name] = Column(DBType.FLOAT64, v.astype(np.float64))
+                schemas.append(ColumnSchema(a.name, DBType.FLOAT64))
+        return Table(TableSchema("result", tuple(schemas)), cols)
+
+    def _assemble_join(self, jspec: JoinAggSpec, gids: np.ndarray,
+                       vals: np.ndarray, pay: np.ndarray):
+        """Build the core result table of a device join from the
+        device-assembled triple: group keys resolve through
+        ``group_sources`` (build key code / payload lane), aggregates from
+        the finalized rows — column order matches the host program's
+        aggregate output (keys, then aggs)."""
+        from .column import Column
+        from .table import Table
+        from .types import ColumnSchema, TableSchema
+        catalog = self.db.catalog
+        gb = jspec.builds[jspec.group_build] \
+            if jspec.group_build is not None else None
+        cols = {}
+        schemas = []
+        for k, src in zip(jspec.group_keys, jspec.group_sources):
+            if src[0] == "key":
+                col = catalog.table(gb.table).column(gb.key)
+                v = (gids.astype(np.float64) + jspec.key_domain[0]) \
+                    .astype(col.data.dtype)
+            else:
+                col = catalog.table(gb.table).column(gb.payload[src[1]])
+                v = pay[:, src[1]].astype(col.data.dtype)
+            if col.dbtype == DBType.VARCHAR:
+                cols[k] = Column(DBType.VARCHAR, v, heap=col.heap)
+            else:
+                cols[k] = Column(col.dbtype, v, scale=col.scale)
+            schemas.append(ColumnSchema(k, col.dbtype, scale=col.scale))
+        for i, a in enumerate(jspec.aggs):
             v = vals[:, i]
             if a.fn == "count":
                 cols[a.name] = Column(DBType.INT64, v.astype(np.int64))

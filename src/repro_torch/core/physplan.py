@@ -21,10 +21,10 @@ choosing strategies from data statistics rather than per-API code paths):
    surfaced through ``Query.explain(physical=True)`` and
    ``ExecStats.plan_repr``.
 
-This package holds the scan-agg half of the planner: the device join tier
-(``match_join_agg``), imprint skip-sets (``derive_skip_sets``) and the
-spill tier's routing wait for their slices.  The device runs on one card,
-so the shard count is 1 and there is no mesh.
+This package holds the scan-agg and join-agg halves of the planner:
+imprint skip-sets (``derive_skip_sets``) and the spill tier's routing wait
+for their slices.  The device runs on one card, so the shard count is 1
+and there is no mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from .types import DBType, NULL_SENTINEL, date_from_string
 
 TIER_DEVICE_RESIDENT = "device-resident"
 TIER_DEVICE_STREAMED = "device-streamed"
+TIER_DEVICE_JOIN = "device-join"
 TIER_DEVICE_SORT = "device-sort"
 TIER_PARALLEL_HOST = "parallel-host"
 TIER_SPILL = "spill"
@@ -53,7 +54,7 @@ TIER_IN_MEMORY = "in-memory"
 
 # tiers whose reservations count against the DEVICE budget at admission
 DEVICE_TIERS = (TIER_DEVICE_RESIDENT, TIER_DEVICE_STREAMED,
-                TIER_DEVICE_SORT)
+                TIER_DEVICE_JOIN, TIER_DEVICE_SORT)
 
 # pattern limits for the device scan-agg tier
 MAX_DENSE_GROUPS = 4096
@@ -62,6 +63,19 @@ DEVICE_BATCH_ROWS = 1 << 16   # morsel batch streamed through the device
                               # cache; fixed per database (not per budget)
                               # so results are budget-invariant
 SUPPORTED_DEVICE_AGGS = {"count", "sum", "avg", "min", "max"}
+
+# device join tier: the dense build-table domain may exceed the scan-agg
+# group cap because the merged partial matrix never materializes on host —
+# device-resident assembly compacts it in device memory first.  Build keys
+# must be unique (verified at runtime; duplicates fall back to the host
+# join).
+MAX_DEVICE_JOIN_DOMAIN = 1 << 21
+# build-payload columns are scatter-added as float64 and must decode
+# exactly; integer-coded types only (|v| < 2^53 for the int64 widths the
+# engine stores — the sentinel -2^63 is a power of two and round-trips)
+DEVICE_JOIN_PAYLOAD_TYPES = (DBType.INT32, DBType.INT64, DBType.DATE,
+                             DBType.BOOL, DBType.VARCHAR)
+DEVICE_JOIN_KEY_TYPES = (DBType.INT32, DBType.INT64, DBType.DATE)
 
 # smarter admission (ROADMAP): a table that fits the device budget but
 # would monopolize more than this fraction of the cache is only admitted
@@ -116,12 +130,10 @@ def match_scan_agg(plan: PlanNode, catalog) -> Optional[ScanAggSpec]:
         elif col.dbtype == DBType.BOOL:
             offset, card = 0.0, 2
         elif col.dbtype in (DBType.INT32, DBType.INT64, DBType.DATE):
-            v = np.asarray(col.data)
-            nn = v[v != NULL_SENTINEL[col.dbtype]]
-            if nn.size == 0:
+            dom = _dense_int_domain(col)
+            if dom is None:
                 return None
-            mn, mx = int(nn.min()), int(nn.max())
-            offset, card = float(mn), mx - mn + 1
+            offset, card = dom
         else:
             return None
         if card > MAX_DENSE_GROUPS:
@@ -170,6 +182,275 @@ def find_scan_agg_core(plan: PlanNode, catalog
     for n in reversed(path):
         suffix = n.with_children((suffix,))
     return node, suffix
+
+
+# ---------------------------------------------------------------------------
+# join-agg pattern (the device JOIN tier's shape)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DeviceBuild:
+    """One build side of a device join: a filtered base scan whose unique
+    dense-domain key becomes the row index of a (card, 1 + n_payload)
+    scatter-add matrix in device memory.  Column 0 is the presence count
+    (== 1 for a unique key, verified at runtime); the payload columns are
+    the build's group-key contributions, recovered at assembly time by
+    gathering the matrix at the surviving key codes."""
+    table: str
+    conjuncts: list                      # filters on this table's columns
+    key: str                             # build-side join key column
+    domain: tuple[float, int]            # (offset, cardinality), dense ints
+    payload: list                        # build columns consumed at assembly
+    probe_edges: list                    # [(earlier build idx, local col)]
+    columns: list                        # all referenced columns
+
+    @property
+    def table_bytes(self) -> int:
+        return self.domain[1] * (1 + len(self.payload)) * 8
+
+
+@dataclass
+class JoinAggSpec:
+    """Aggregate over an inner-equi-join tree rooted at one probe (fact)
+    table, every other table a ``DeviceBuild``.  Execution: build matrices
+    bottom-up (each build's stream probes its children's matrices), then
+    stream probe batches — gather presence, mask, sum partials by the
+    probe-side key code.  Soundness of the single-key gid: every group key
+    is either the probe↔group-build join key itself or a column of the
+    group build, and a *unique* build key functionally determines those —
+    one code, one group."""
+    probe_table: str
+    probe_conjuncts: list
+    probe_edges: list                    # [(build idx, probe-side column)]
+    builds: list                         # bottom-up build order
+    group_build: Optional[int]           # index of B*, None for global aggs
+    group_keys: list
+    group_sources: list                  # per key: ("key",) | ("payload", j)
+    aggs: list
+    n_groups: int
+    key_domain: tuple[float, int]        # domain of the group build's key
+    columns: list                        # probe-side referenced columns
+
+    # ScanAggSpec view for the shared partial-matrix layout / fragment
+    # machinery: the probe phase IS a scan-agg over the probe table grouped
+    # by the (single) join-key code.
+    def probe_spec(self) -> ScanAggSpec:
+        keys = [self.probe_key] if self.group_build is not None else []
+        doms = [self.key_domain] if self.group_build is not None else []
+        return ScanAggSpec(self.probe_table, list(self.probe_conjuncts),
+                           keys, doms, list(self.aggs), self.n_groups,
+                           list(self.columns))
+
+    @property
+    def probe_key(self) -> Optional[str]:
+        if self.group_build is None:
+            return None
+        for bidx, col in self.probe_edges:
+            if bidx == self.group_build:
+                return col
+        return None
+
+
+def _flatten_join_tree(node: PlanNode):
+    """Flatten Filter*/Join/Scan shapes into (tables, edges, loose) where
+    ``tables`` maps each base table to its own-column conjuncts, ``edges``
+    are single-key inner equi-join pairs and ``loose`` are conjuncts found
+    above a join (attributed to a table by column ownership later).  None
+    when any node breaks the shape (outer joins, multi-key joins,
+    self-joins, non-scan leaves)."""
+    tables: dict = {}
+    edges: list = []
+    loose: list = []
+
+    def walk(n: PlanNode) -> bool:
+        conjs: list = []
+        while isinstance(n, FilterNode):
+            conjs = split_conjuncts(n.predicate) + conjs
+            n = n.child
+        if isinstance(n, ScanNode):
+            if n.table in tables:
+                return False                      # self-join: host tier
+            tables[n.table] = conjs
+            return True
+        if isinstance(n, JoinNode):
+            if n.how != "inner" or len(n.left_keys) != 1:
+                return False
+            loose.extend(conjs)
+            edges.append((n.left_keys[0], n.right_keys[0]))
+            return walk(n.left) and walk(n.right)
+        return False
+
+    if not walk(node):
+        return None
+    return tables, edges, loose
+
+
+def _dense_int_domain(col) -> Optional[tuple[float, int]]:
+    """(offset, cardinality) of an integer-coded column's non-NULL values;
+    None when every value is NULL."""
+    v = np.asarray(col.data)
+    nn = v[v != NULL_SENTINEL[col.dbtype]]
+    if nn.size == 0:
+        return None
+    mn, mx = int(nn.min()), int(nn.max())
+    return float(mn), mx - mn + 1
+
+
+def match_join_agg(plan: PlanNode, catalog) -> Optional[JoinAggSpec]:
+    """Aggregate( Filter* ( Join tree of filtered base scans ) ) where the
+    join graph is a tree rooted at the probe table (the one the aggregate
+    expressions read), every build key has a dense integer domain, and all
+    group keys are functionally dependent on ONE probe-adjacent build."""
+    if not isinstance(plan, AggregateNode):
+        return None
+    if any(a.fn not in SUPPORTED_DEVICE_AGGS for a in plan.aggs):
+        return None
+    flat = _flatten_join_tree(plan.child)
+    if flat is None or len(flat[0]) < 2:
+        return None
+    tables, edges, loose = flat
+
+    # column ownership: every referenced column must belong to exactly one
+    # of the joined tables (TPC-H-style prefixed names)
+    owner: dict = {}
+    cats = {t: catalog.table(t) for t in tables}
+    for t in tables:
+        for name in cats[t].schema.names:
+            owner[name] = None if name in owner else t   # None: ambiguous
+
+    def owner_of(cols) -> Optional[str]:
+        owners = {owner.get(c) for c in cols}
+        if len(owners) != 1 or None in owners:
+            return None
+        return owners.pop()
+
+    for conj in loose:
+        t = owner_of(conj.columns())
+        if t is None:
+            return None
+        tables[t].append(conj)
+
+    # the probe table: where the aggregate expressions read from
+    agg_cols: set = set()
+    for a in plan.aggs:
+        if a.expr is not None:
+            agg_cols |= a.expr.columns()
+    if agg_cols:
+        probe = owner_of(agg_cols)
+        if probe is None:
+            return None
+    else:
+        probe = max(tables, key=lambda t: cats[t].num_rows)
+
+    # join graph must be a tree spanning all tables, rooted at the probe
+    if len(edges) != len(tables) - 1:
+        return None
+    adj: dict = {t: [] for t in tables}
+    for ca, cb in edges:
+        ta, tb = owner.get(ca), owner.get(cb)
+        if ta is None or tb is None or ta == tb:
+            return None
+        adj[ta].append((tb, cb, ca))
+        adj[tb].append((ta, ca, cb))
+    order = [probe]
+    parent_edge: dict = {}                   # table -> (parent, key, pcol)
+    seen = {probe}
+    i = 0
+    while i < len(order):
+        t = order[i]
+        i += 1
+        for (other, okey, tcol) in adj[t]:
+            if other in seen:
+                continue
+            seen.add(other)
+            parent_edge[other] = (t, okey, tcol)
+            order.append(other)
+    if len(seen) != len(tables):
+        return None                          # disconnected (cross join)
+
+    # bottom-up build order: children before the builds that probe them
+    build_tables = list(reversed(order[1:]))
+    bidx = {t: i for i, t in enumerate(build_tables)}
+
+    # group keys: all must resolve to ONE probe-adjacent build (B*)
+    group_build: Optional[str] = None
+    for g in plan.group_by:
+        t = owner.get(g)
+        if t is None:
+            return None
+        if t == probe:
+            cand = [other for other, okey, tcol in adj[probe] if tcol == g]
+            if len(cand) != 1:
+                return None
+            t = cand[0]
+        if group_build is None:
+            group_build = t
+        elif group_build != t:
+            return None
+    if group_build is not None:
+        if parent_edge[group_build][0] != probe:
+            return None                      # FD chain only one hop deep
+
+    builds = []
+    for t in build_tables:
+        par, key, pcol = parent_edge[t]
+        col = cats[t].column(key)
+        if col.dbtype not in DEVICE_JOIN_KEY_TYPES:
+            return None
+        dom = _dense_int_domain(col)
+        if dom is None or dom[1] > MAX_DEVICE_JOIN_DOMAIN:
+            return None
+        payload = []
+        if t == group_build:
+            for g in plan.group_by:
+                if owner.get(g) == t and g != key:
+                    pc = cats[t].column(g)
+                    if pc.dbtype not in DEVICE_JOIN_PAYLOAD_TYPES:
+                        return None
+                    payload.append(g)
+        pedges = [(bidx[other], tcol)
+                  for other, okey, tcol in adj[t]
+                  if other != par and other in bidx]
+        cols = set(payload) | {key} | {c for _, c in pedges}
+        for conj in tables[t]:
+            cols |= conj.columns()
+        builds.append(DeviceBuild(
+            t, tables[t], key, dom, payload, pedges, sorted(cols)))
+
+    probe_edges = [(bidx[other], tcol)
+                   for other, okey, tcol in adj[probe] if other in bidx]
+    if group_build is not None:
+        gb = bidx[group_build]
+        key_domain = builds[gb].domain
+        n_groups = key_domain[1]
+        pk = [c for b, c in probe_edges if b == gb][0]
+    else:
+        gb, key_domain, n_groups, pk = None, (0.0, 1), 1, None
+    group_sources: list = []
+    for g in plan.group_by:
+        t = owner.get(g)
+        if t == probe or g == builds[gb].key:
+            group_sources.append(("key",))
+        else:
+            group_sources.append(("payload", builds[gb].payload.index(g)))
+    if group_sources and ("key",) not in group_sources:
+        # the device groups at build-key granularity; payload-only group
+        # keys (e.g. GROUP BY a dimension attribute) are coarser and
+        # would need a second merge — leave those to the host join
+        return None
+
+    pcols: set = set() if pk is None else {pk}
+    pcols |= {c for _, c in probe_edges}
+    pcols |= agg_cols
+    for conj in tables[probe]:
+        pcols |= conj.columns()
+    if not pcols:
+        pcols = {cats[probe].schema.names[0]}
+
+    return JoinAggSpec(probe, tables[probe], probe_edges, builds, gb,
+                       list(plan.group_by), group_sources, list(plan.aggs),
+                       n_groups, key_domain, sorted(pcols))
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +537,57 @@ def scan_agg_geometry(spec: ScanAggSpec, table,
         carry_nbytes=carry,
         batch_bytes=rows * row_bytes + carry,
         resident_bytes=n_batches * rows * row_bytes + carry)
+
+
+@dataclass
+class JoinAggGeometry:
+    """Batch decomposition + byte footprint of one device join-agg.
+    ``state_bytes`` is the device-resident working state (build matrices +
+    carry) that stays on device for the whole query, and ``working_bytes``
+    is the streamed admission unit: state plus a double-buffered copy of
+    the largest single stream batch (build or probe)."""
+    batch_rows: int              # probe batch rows
+    n_batches: int               # probe batch count
+    state_bytes: int             # carry + all build matrices
+    working_bytes: int           # state + 2 * max batch (streamed unit)
+    resident_bytes: int          # every stream fully resident + state
+
+
+def join_agg_geometry(spec: JoinAggSpec, catalog,
+                      batch_rows: Optional[int] = None) -> JoinAggGeometry:
+    pg = scan_agg_geometry(spec.probe_spec(), catalog.table(spec.probe_table),
+                           batch_rows)
+    state = pg.carry_nbytes + sum(b.table_bytes for b in spec.builds)
+    max_batch = pg.batch_rows * pg.row_bytes
+    resident = pg.n_batches * pg.batch_rows * pg.row_bytes
+    for b in spec.builds:
+        bspec = ScanAggSpec(b.table, [], [], [], [], 1, list(b.columns))
+        bg = scan_agg_geometry(bspec, catalog.table(b.table), batch_rows)
+        max_batch = max(max_batch, bg.batch_rows * bg.row_bytes)
+        resident += bg.n_batches * bg.batch_rows * bg.row_bytes
+    return JoinAggGeometry(
+        batch_rows=pg.batch_rows, n_batches=pg.n_batches,
+        state_bytes=state, working_bytes=state + 2 * max_batch,
+        resident_bytes=resident + state)
+
+
+def choose_device_join_tier(resident_bytes: float, working_bytes: float,
+                            device_budget: Optional[int],
+                            host_budget: Optional[int] = None) -> str:
+    """Join-tier placement, mirroring ``choose_device_tier``'s semantics:
+    ``"resident"`` when every stream fits the device budget at once,
+    ``"streamed"`` when the device working state plus a double-buffered
+    batch does, ``"host"`` otherwise.  The host-budget demotion carries
+    the same caveat as the scan-agg tier: streaming only bounds residency
+    through eviction, so it needs a real device budget to be a demotion
+    target."""
+    streamable = device_budget is not None \
+        and working_bytes <= device_budget
+    if device_budget is not None and resident_bytes > device_budget:
+        return "streamed" if streamable else "host"
+    if host_budget is not None and resident_bytes > host_budget:
+        return "streamed" if streamable else "host"
+    return "resident"
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +815,11 @@ class TierPolicy:
             host_budget=self.host_budget, host_bytes=geom.resident_bytes,
             hit_history=hits)
 
+    def device_join_tier(self, geom: JoinAggGeometry) -> str:
+        return choose_device_join_tier(
+            geom.resident_bytes, geom.working_bytes,
+            self.device_budget, self.host_budget)
+
 
 # ---------------------------------------------------------------------------
 # the physical plan
@@ -525,6 +862,12 @@ class PhysicalPlan:
     agg_tier: Optional[str] = None        # device-*/parallel-host when set
     suffix_plan: Optional[PlanNode] = None
     geometry: Optional[ScanAggGeometry] = None
+    # device join tier: the matched join-agg core and its geometry.  The
+    # join runs in one of two modes ("resident"/"streamed"); both annotate
+    # as TIER_DEVICE_JOIN — the mode shows in the operator detail.
+    join_agg: Optional[JoinAggSpec] = None
+    join_geometry: Optional[JoinAggGeometry] = None
+    join_mode: Optional[str] = None
     # device sort tier: the ORDER BY suffix node fused onto a device core
     # (sort keys computed + sorted in device memory; only the top rows
     # fetched)
@@ -537,11 +880,22 @@ class PhysicalPlan:
     # level-1 row estimate.  Only set when the plan has exactly one
     # aggregate (otherwise the observation is ambiguous).
     group_card_hint: Optional[int] = None
+    demote_reason: str = ""               # why a device core runs on host
     _reservations: Optional[tuple] = None   # cached total_reservations()
 
     # -- queries --------------------------------------------------------------
     def device_tier(self) -> bool:
         return self.agg_tier in DEVICE_TIERS
+
+    def demote_device(self, reason: str) -> None:
+        """A runtime precondition of the device tier failed (duplicate
+        build keys of a device join): the core re-routes to the host
+        program.  The annotation is updated so EXPLAIN output reflects
+        what actually ran; a fused device sort demotes with its core —
+        the host program sorts."""
+        self.agg_tier = TIER_PARALLEL_HOST
+        self.sort_on_device = False
+        self.demote_reason = reason
 
     def total_reservations(self) -> tuple[int, int]:
         """Summed per-operator budget reservations as ``(host_bytes,
@@ -590,12 +944,15 @@ class PhysicalPlan:
 
     def _annotate(self, node: PlanNode) -> PhysicalOp:
         if node is self.agg_core and self.agg_tier in (
-                TIER_DEVICE_RESIDENT, TIER_DEVICE_STREAMED):
+                TIER_DEVICE_RESIDENT, TIER_DEVICE_STREAMED,
+                TIER_DEVICE_JOIN):
             return self._annotate_core(node)
         if node is self.sort_node and self.sort_on_device:
             children = tuple(self._annotate(c) for c in node.children)
+            core = self.join_agg if self.join_agg is not None \
+                else self.scan_agg
             est = int(self.policy.sort_state_bytes(
-                self.scan_agg.n_groups, len(node.keys)))
+                core.n_groups, len(node.keys)))
             return PhysicalOp(node, TIER_DEVICE_SORT, est, est,
                               "(fused onto device core)", children)
         children = tuple(self._annotate(c) for c in node.children)
@@ -631,24 +988,39 @@ class PhysicalPlan:
                 and self.group_card_hint is not None:
             detail = f"(observed groups={self.group_card_hint})"
         if node is self.agg_core and self.agg_tier == TIER_PARALLEL_HOST:
-            # the core matched the device pattern but the planner kept it
-            # on the host (not even one batch fits the device budget)
-            detail = f"{detail} scan-agg core kept on host".strip()
+            # the core matched a device pattern but runs as a host program
+            # (the device budget declined it, or a runtime precondition
+            # demoted it) — record why the device tier was not used
+            kind = "join-agg" if self.join_agg is not None else "scan-agg"
+            extra = f"{kind} core kept on host"
+            if self.demote_reason:
+                extra += f" ({self.demote_reason})"
+            detail = f"{detail} {extra}".strip()
         dnote = self._delta_note(node)
         if dnote:
             detail = f"{detail} {dnote}".strip()
         return PhysicalOp(node, tier, est, reserve, detail, children)
 
     def _annotate_core(self, node: PlanNode) -> PhysicalOp:
-        """A device-routed scan-agg core: one tier decision covers the
-        whole fused subtree (filters and scans execute inside the batch
-        step)."""
-        g = self.geometry
-        if self.agg_tier == TIER_DEVICE_RESIDENT:
-            est, reserve = g.resident_bytes, g.resident_bytes
+        """A device-routed scan-agg or join-agg core: one tier decision
+        covers the whole fused subtree (filters, scans and — for the join
+        tier — the build/probe joins execute inside the batch steps)."""
+        if self.agg_tier == TIER_DEVICE_JOIN:
+            g = self.join_geometry
+            if self.join_mode == "resident":
+                est, reserve = g.resident_bytes, g.resident_bytes
+            else:
+                est, reserve = g.resident_bytes, g.working_bytes
+            detail = f"groups={self.join_agg.n_groups}"
+            detail += f" builds={len(self.join_agg.builds)}"
+            detail += f" mode={self.join_mode}"
         else:
-            est, reserve = g.resident_bytes, 2 * g.batch_bytes
-        detail = f"groups={self.scan_agg.n_groups}"
+            g = self.geometry
+            if self.agg_tier == TIER_DEVICE_RESIDENT:
+                est, reserve = g.resident_bytes, g.resident_bytes
+            else:
+                est, reserve = g.resident_bytes, 2 * g.batch_bytes
+            detail = f"groups={self.scan_agg.n_groups}"
         detail += f" batches={g.n_batches}x{g.batch_rows}rows"
 
         def fused(n: PlanNode) -> PhysicalOp:
@@ -717,21 +1089,32 @@ def plan_physical(plan: PlanNode, db, *, do_optimize: bool = True,
     if core is None:
         return phys
     spec = match_scan_agg(core, catalog)
-    if spec is None:
+    jspec = match_join_agg(core, catalog) if spec is None else None
+    if spec is None and jspec is None:
         return phys
     phys.agg_core = core
     phys.suffix_plan = suffix
     phys.scan_agg = spec
-    table = catalog.table(spec.table)
+    phys.join_agg = jspec
+    table = catalog.table(spec.table if spec is not None
+                          else jspec.probe_table)
     if table.num_rows < MIN_ROWS_TO_SHARD:
         return phys
-    geom = scan_agg_geometry(spec, table,
-                             getattr(db, "device_batch_rows", None))
-    phys.geometry = geom
-    tier = policy.device_tier(geom, spec.table)
-    phys.agg_tier = {"resident": TIER_DEVICE_RESIDENT,
-                     "streamed": TIER_DEVICE_STREAMED,
-                     "host": TIER_PARALLEL_HOST}[tier]
+    batch_rows = getattr(db, "device_batch_rows", None)
+    if spec is not None:
+        geom = scan_agg_geometry(spec, table, batch_rows)
+        phys.geometry = geom
+        tier = policy.device_tier(geom, spec.table)
+        phys.agg_tier = {"resident": TIER_DEVICE_RESIDENT,
+                         "streamed": TIER_DEVICE_STREAMED,
+                         "host": TIER_PARALLEL_HOST}[tier]
+    else:
+        jgeom = join_agg_geometry(jspec, catalog, batch_rows)
+        phys.join_geometry = jgeom
+        mode = policy.device_join_tier(jgeom)
+        phys.join_mode = None if mode == "host" else mode
+        phys.agg_tier = TIER_PARALLEL_HOST if mode == "host" \
+            else TIER_DEVICE_JOIN
     # ORDER BY directly over a device-routed core fuses onto the device:
     # sort keys are computed and sorted in device memory, only the
     # surviving rows come back.  Any deeper suffix (projection, HAVING)

@@ -1,7 +1,8 @@
-"""TPC-H queries of this slice, as builder queries: Q1 (pricing summary
+"""TPC-H queries ported so far, as builder queries: Q1 (pricing summary
 report) and Q6 (forecasting revenue change), the two filter→aggregate
-scans of the paper's Table 1 that run on the device scan-agg tier.  Each
-``q<i>(db)`` returns a relalg ``Query``."""
+scans of the paper's Table 1 that run on the device scan-agg tier, and Q3
+(shipping priority), the customer ⋈ orders ⋈ lineitem join that runs on
+the device join tier.  Each ``q<i>(db)`` returns a relalg ``Query``."""
 
 from __future__ import annotations
 
@@ -26,6 +27,20 @@ def q1(db) -> Query:
             .order_by("l_returnflag", "l_linestatus"))
 
 
+def q3(db) -> Query:
+    revenue = Col("l_extendedprice") * (1 - Col("l_discount"))
+    return (db.scan("customer").filter(Col("c_mktsegment") == "BUILDING")
+            .join(db.scan("orders"), left_on="c_custkey",
+                  right_on="o_custkey")
+            .filter(Col("o_orderdate") < DateLit("1995-03-15"))
+            .join(db.scan("lineitem"), left_on="o_orderkey",
+                  right_on="l_orderkey")
+            .filter(Col("l_shipdate") > DateLit("1995-03-15"))
+            .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(revenue=("sum", revenue))
+            .order_by(("revenue", True), "o_orderdate", limit=10))
+
+
 def q6(db) -> Query:
     return (db.scan("lineitem")
             .filter((Col("l_shipdate") >= DateLit("1994-01-01"))
@@ -37,4 +52,4 @@ def q6(db) -> Query:
                           * Col("l_discount"))))
 
 
-ALL_QUERIES = {"q1": q1, "q6": q6}
+ALL_QUERIES = {"q1": q1, "q3": q3, "q6": q6}

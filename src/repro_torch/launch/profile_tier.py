@@ -1,6 +1,6 @@
 """Where a device-tier query's time goes on the card.
 
-Runs TPC-H Q1 and Q6 (SF ``--sf``, seed ``--seed``) through the port's
+Runs TPC-H Q1, Q6 and Q3 (SF ``--sf``, seed ``--seed``) through the port's
 entry points — ``startup(device="cuda", device_budget=B)``, the builder
 API, ``Query.execute(distributed=True)`` — once to warm the block cache
 and the step caches, then once under ``torch.profiler`` per budget cell.
@@ -28,7 +28,8 @@ import torch
 from ..core import startup
 from ..data import load_tables, tpch, tpch_queries
 
-BUDGETS = (1 << 30, 64 << 20)
+BUDGETS = (1 << 30, 128 << 20, 64 << 20)
+QUERIES = ("q1", "q6", "q3")
 
 
 def _union_us(intervals) -> float:
@@ -80,14 +81,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_tier: no CUDA device", file=sys.stderr)
         return 2
-    data = {"lineitem": tpch.generate(args.sf, args.seed)["lineitem"]}
+    gen = tpch.generate(args.sf, args.seed)
+    data = {t: gen[t] for t in ("customer", "orders", "lineitem")}
     for budget in BUDGETS:
         db = startup(device="cuda", device_budget=budget,
                      device_batch_rows=args.batch_rows)
         load_tables(db, data)
-        for name in ("q1", "q6"):
+        for name in QUERIES:
             query = tpch_queries.ALL_QUERIES[name]
             query(db).execute(distributed=True).to_pydict()      # warm
+            if not db.last_stats.device_tier:
+                # the planner kept the query on the host tier (Q3 at
+                # 64 MiB): there is no device time to profile
+                print(json.dumps({"query": name, "sf": args.sf,
+                                  "device_budget": budget, "tier": ""}),
+                      flush=True)
+                continue
             out = profile_query(query, db)
             print(json.dumps({"query": name, "sf": args.sf,
                               "device_budget": budget, **out}), flush=True)
