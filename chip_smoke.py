@@ -5,12 +5,16 @@ Builds the port's hand-written kernels from ``src/repro_torch/csrc``,
 holds each against its plain PyTorch version on the card, and runs TPC-H
 Q1, Q6 and Q3 at scale factor 1 (6,000,000 lineitem, 1,500,000 orders and
 150,000 customer rows, seed 7) through the port's entry points —
-``startup(device="cuda", device_budget=B)``, the builder API,
-``Query.execute(distributed=True)`` — in four device-budget cells.  A kernel's ``ms``, ``plain_ms`` and ``library_ms`` are the card's
-time for calls queued ahead of it (``device_ms``); ``wrapper_ms`` adds the
-host's per-call cost.  Prints one JSON object per phase, then a summary line of every
-kernel, the card's name and power limit (as ``nvidia-smi`` gives them) and
-a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without
+``startup(device="cuda", device_budget=B)`` (imprint data skipping on, the
+default), the builder API, ``Query.execute(distributed=True)`` — in four
+device-budget cells (phase ``engine``), then with lineitem and orders in
+date order, skipping on and off, at 1 GiB and 128 MiB (phase
+``skipping``).  A kernel's ``ms``, ``plain_ms`` and ``library_ms`` are the
+card's time for calls queued ahead of it (``device_ms``); ``wrapper_ms``
+adds the host's per-call cost.  Prints one JSON object per phase, then a
+summary line of every kernel, the card's name and power limit (as
+``nvidia-smi`` gives them) and a last line ``{"ok": true, "device":
+{...}}``.  Exits non-zero, without
 that last line, when any phase fails or when there is no CUDA device.
 
     python3 chip_smoke.py            # SF 1, as the check runs it
@@ -44,7 +48,14 @@ SCAN_TIER = {None: "resident", 1 * GiB: "resident", 128 * MiB: "streamed",
 EXPECTED_TIER = {"q1": SCAN_TIER, "q6": SCAN_TIER,
                  "q3": {None: "join-resident", 1 * GiB: "join-resident",
                         128 * MiB: "join-streamed", 64 * MiB: ""}}
-KERNELS = ("hash_group", "scan_agg", "radix_build", "radix_probe", "sort")
+KERNELS = ("hash_group", "scan_agg", "radix_build", "radix_probe", "sort",
+           "imprint")
+# the skipping phase: the clustered load order data skipping pays on
+SKIP_BUDGETS = (1 * GiB, 128 * MiB)
+SKIP_QUERIES = ("q6", "q1", "q3")
+SORT_KEYS = {"lineitem": "l_shipdate", "orders": "o_orderdate"}
+QUERY_TABLES = {"q1": ("lineitem",), "q6": ("lineitem",),
+                "q3": ("customer", "orders", "lineitem")}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP64_FLOPS = 34e12               # H100 SXM float64 outside tensor cores
 EPS64 = 2.0 ** -52
@@ -112,22 +123,25 @@ def bound(nbytes: float, flops: float):
 def _launch_counters():
     """Every ported kernel's launch counter, by kernel name."""
     from repro_torch.kernels.hash_group import kernel as hk
+    from repro_torch.kernels.imprint import kernel as ik
     from repro_torch.kernels.radix_join import kernel as rk
     from repro_torch.kernels.scan_agg import kernel as sk
     from repro_torch.kernels.sort import kernel as so
     return {"hash_group": hk.LAUNCHES, "scan_agg": sk.LAUNCHES,
             "radix_build": rk.BUILD_LAUNCHES,
-            "radix_probe": rk.PROBE_LAUNCHES, "sort": so.LAUNCHES}
+            "radix_probe": rk.PROBE_LAUNCHES, "sort": so.LAUNCHES,
+            "imprint": ik.LAUNCHES}
 
 
 def phase_build():
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.hash_group import kernel as hk
+    from repro_torch.kernels.imprint import kernel as ik
     from repro_torch.kernels.radix_join import kernel as rk
     from repro_torch.kernels.scan_agg import kernel as sk
     from repro_torch.kernels.sort import kernel as so
     libs = {"hash_group": hk._bind, "scan_agg": sk._bind,
-            "radix_join": rk._bind, "sort": so._bind}
+            "radix_join": rk._bind, "sort": so._bind, "imprint": ik._bind}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc each
         futs = [pool.submit(cuda_build.load, n, b) for n, b in libs.items()]
@@ -454,6 +468,87 @@ def check_sort(rng, case, n, n_keys=1):
                              "library_ms": a_lib}}
 
 
+def check_imprint(case, col_np, div=1.0, base=None):
+    """imprint against its plain version on the same column, exactly: a
+    build is two launches (block bounds, then bounds and bitmaps over the
+    column's range); an extension (``base`` = the old ``(lo, hi)``) is one
+    launch binned against that range.  ``ms`` is one launch of the second
+    kind, ``build_ms`` the whole build as the engine runs it (both
+    launches, the range read and the fetch of the zone maps)."""
+    import torch
+    from repro_torch.kernels.imprint.kernel import n_blocks, zone_maps
+    from repro_torch.kernels.imprint.ops import build_zone_maps, zone_range
+    from repro_torch.kernels.imprint.ref import BINS, zone_maps_ref
+    vals = torch.as_tensor(col_np, device=torch.device("cuda"))
+    if base is None:
+        got0, want0 = zone_maps(vals, div), zone_maps_ref(vals, div)
+        lo, hi, inv = zone_range(*got0)
+    else:
+        got0 = want0 = ()
+        lo, hi = base
+        inv = BINS / (hi - lo) if hi > lo else 0.0
+    got = zone_maps(vals, div, (lo, inv))
+    want = zone_maps_ref(vals, div, (lo, inv))
+    torch.cuda.synchronize()
+    pairs = list(zip(got0, want0)) + list(zip(got, want))
+    exact = all(bool(torch.equal(g, w)) for g, w in pairs)
+    err = 0.0
+    for g, w in pairs[:-1]:                    # the float64 bounds
+        fin = torch.isfinite(w)
+        if fin.any():
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    n = vals.shape[0]
+    nb = n_blocks(n)
+    ms, a_ms = device_ms(lambda: zone_maps(vals, div, (lo, inv)))
+    w_ms = wrapper_ms(lambda: zone_maps(vals, div, (lo, inv)))
+    build_ms = wrapper_ms(lambda: build_zone_maps(vals, div), reps=10)
+    plain_ms, a_plain = device_ms(
+        lambda: zone_maps_ref(vals, div, (lo, inv)), reps=5)
+    # one read of the column in its stored type, 18 B written a block
+    b_ms, b_by = bound(n * vals.element_size() + nb * 18, 4 * n)
+    return {"kernel": "imprint", "case": case, "n": n, "blocks": nb,
+            "dtype": str(vals.dtype), "div": div, "lo": lo, "hi": hi,
+            "max_abs_err": err, "exact": exact, "ok": exact, "ms": ms,
+            "wrapper_ms": w_ms, "build_ms": build_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "queued_ahead": {"ms": a_ms, "plain_ms": a_plain}}
+
+
+def _imprint_cases(tables, rng):
+    """The main path's column (SF 1 ``l_shipdate``, int32) and the edge
+    cases: a ragged last block, an all-NULL block, a constant column,
+    int64 with NULL sentinels, DECIMAL with scale 2 (``o_totalprice``),
+    float64 with NaN, an all-NULL column, and a tail extension with values
+    outside the old range."""
+    import numpy as np
+    n = 10 * 2048 + 777
+    i64_null = np.iinfo(np.int64).min
+    shipdate = np.asarray(tables["lineitem"].column("l_shipdate").data)
+    price = tables["orders"].column("o_totalprice")
+    ragged = rng.uniform(-100.0, 100.0, n)
+    null_block = ragged.copy()
+    null_block[2048:4096] = np.nan
+    ints = rng.integers(-10**12, 10**12, n).astype(np.int64)
+    ints[rng.random(n) < 0.2] = i64_null
+    ints[:2048] = i64_null
+    floats = rng.normal(0.0, 1e6, n)
+    floats[rng.random(n) < 0.3] = np.nan
+    tail = rng.uniform(-50.0, 150.0, 3 * 2048 + 5)
+    return [
+        check_imprint("l_shipdate", shipdate),
+        check_imprint("ragged", ragged),
+        check_imprint("null_block", null_block),
+        check_imprint("constant", np.full(n, 42.5)),
+        check_imprint("int64_sentinel", ints),
+        check_imprint("decimal", np.asarray(price.data),
+                      div=float(10 ** price.scale)),
+        check_imprint("float_nan", floats),
+        check_imprint("all_null", np.full(n, np.iinfo(np.int32).min,
+                                          dtype=np.int32)),
+        check_imprint("extension", tail, base=(0.0, 100.0)),
+    ]
+
+
 def phase_kernels(tables, batch_rows: int, seed: int):
     import numpy as np
     (G1, V1), (C6, P6), (D3, Vp3, Vb3) = _main_path_shapes(tables,
@@ -485,7 +580,7 @@ def phase_kernels(tables, batch_rows: int, seed: int):
         check_sort(rng, "equal", n_sort),
         check_sort(rng, "inf", n_sort),
         check_sort(rng, "large", 100_003),
-    ]
+    ] + _imprint_cases(tables, rng)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         emit({"phase": "kernels", "ok": False, "checks": checks})
@@ -525,12 +620,72 @@ def _close(dev: dict, host: dict, rtol: float) -> bool:
     return True
 
 
+def _stream_plan(db, q: str, batch_rows: int):
+    """For each table the query's device core streams: the live batches and
+    the gathered (boundary) batches its plan-time skip-set implies,
+    computed here from the skip-set, independently of the engine's
+    streams, and whether the table has a skip-set.  Imprints are cached by
+    then, so planning launches nothing."""
+    import math
+    from repro_torch.core.physplan import plan_physical
+    from repro_torch.data import tpch_queries as Q
+    phys = plan_physical(Q.ALL_QUERIES[q](db).plan, db, distributed=True)
+    m = batch_rows
+    out = {}
+    for t in QUERY_TABLES[q]:
+        n = db.table(t).num_rows
+        ss = phys.skip_set_for_table(t)
+        live, gathered = [], []
+        for b in range(-(-n // m)):
+            s, e = b * m, min(n, b * m + m)
+            if ss is None:
+                live.append(b)
+                continue
+            if not ss.batch_qualifies(s, e):
+                continue
+            live.append(b)
+            ub = math.gcd(ss.block, m)
+            slots = sum(ss.batch_qualifies(s + k * ub, min(s + k * ub + ub, e))
+                        for k in range(m // ub))
+            if slots < m // ub:
+                gathered.append(b)
+        out[t] = (live, gathered, ss is not None)
+    return out
+
+
+def _expected_launches(q: str, streams: dict, on_device: bool,
+                       new_imprints: int) -> dict:
+    """Launches of one run, kernel by kernel: one step kernel per live
+    batch of each stream (Q1 and Q3 also sort by two ORDER BY keys, and Q3
+    probes orders with every orders and lineitem batch and gathers the
+    payload once), and two imprint launches per imprint the run built."""
+    n = {t: len(v[0]) for t, v in streams.items()}
+    want = {k: 0 for k in KERNELS}
+    if on_device:
+        want.update({
+            "q1": lambda: {"hash_group": n["lineitem"], "sort": 2},
+            "q6": lambda: {"scan_agg": n["lineitem"]},
+            "q3": lambda: {"radix_build": n["customer"] + n["orders"]
+                           + n["lineitem"],
+                           "radix_probe": n["orders"] + n["lineitem"] + 1,
+                           "sort": 2},
+        }[q]())
+    want["imprint"] = 2 * new_imprints
+    return want
+
+
+def _n_imprints(db) -> int:
+    return sum(v is not None for v in db.index_manager.imprints.values())
+
+
 def phase_engine(tables, batch_rows: int, full_scale: bool):
     """Q1, Q6 and Q3 through the entry points in every budget cell, cold
-    and warm.  Each run is held to the unbudgeted cold run (bit-identical),
+    and warm, data skipping on (the default) over tables in generator
+    order.  Each run is held to the unbudgeted cold run (bit-identical),
     to the host tier (rtol=1e-9, keys exact; bit-identical where the
-    planner kept the query on the host), to the budget, to the
-    launches of every kernel, and — at SF 1 (``full_scale``), where the
+    planner kept the query on the host), to the budget, to the launches of
+    every kernel (one step kernel per live batch, two imprint launches per
+    imprint the run built), and — at SF 1 (``full_scale``), where the
     cells were sized — to its expected tier; at another scale the launches
     are held to the tier the planner picked."""
     import numpy as np
@@ -539,18 +694,6 @@ def phase_engine(tables, batch_rows: int, full_scale: bool):
     from repro_torch.data import tpch_queries as Q
     counters = _launch_counters()
     nb = {n: -(-t.num_rows // batch_rows) for n, t in tables.items()}
-    # launches per device run, kernel by kernel (every other kernel: 0).
-    # Q1 and Q3 sort by two ORDER BY keys: two sort launches each.  Q3
-    # builds customer then orders (probing customer), then probes orders
-    # with every lineitem batch and gathers the payload once.
-    want = {
-        "q1": {"hash_group": nb["lineitem"], "sort": 2},
-        "q6": {"scan_agg": nb["lineitem"]},
-        "q3": {"radix_build": nb["customer"] + nb["orders"]
-               + nb["lineitem"],
-               "radix_probe": nb["orders"] + nb["lineitem"] + 1,
-               "sort": 2},
-    }
     n_rows = {"q1": 6, "q6": 1, "q3": 10}
     cells = {}
     results = {}
@@ -569,16 +712,18 @@ def phase_engine(tables, batch_rows: int, full_scale: bool):
                 host[q] = query(db).execute().to_pydict()
                 cell[f"{q}_host_ms"] = (time.perf_counter() - t0) * 1e3
             for run in ("cold", "warm"):
+                n_imp = _n_imprints(db)
                 for c in counters.values():
                     c.reset()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = query(db).execute(distributed=True).to_pydict()
                 ms = (time.perf_counter() - t0) * 1e3
+                launches = {k: c.count for k, c in counters.items()}
                 st = db.last_stats
                 tier_want = EXPECTED_TIER[q][budget] if full_scale \
                     else st.device_tier
-                launches = {k: c.count for k, c in counters.items()}
+                streams = _stream_plan(db, q, batch_rows)
                 for k in KERNELS:
                     totals[k] += launches[k]
                 ctx = f"{budget}/{q}/{run}"
@@ -586,11 +731,12 @@ def phase_engine(tables, batch_rows: int, full_scale: bool):
                 cell[f"{q}_{run}_h2d_bytes"] = st.device_bytes_h2d
                 cell[f"{q}_{run}_launches"] = launches
                 cell[f"{q}_{run}_tier"] = st.device_tier
+                cell[f"{q}_{run}_blocks_skipped"] = st.blocks_skipped
                 if st.device_tier != tier_want:
                     failures.append(f"{ctx}: tier {st.device_tier!r}, want "
                                     f"{tier_want!r}")
-                expect = {k: want[q].get(k, 0) if tier_want else 0
-                          for k in KERNELS}
+                expect = _expected_launches(q, streams, bool(tier_want),
+                                            _n_imprints(db) - n_imp)
                 if launches != expect:
                     failures.append(f"{ctx}: launches {launches}, want "
                                     f"{expect}")
@@ -622,6 +768,188 @@ def phase_engine(tables, batch_rows: int, full_scale: bool):
         db.shutdown()
     out = {"phase": "engine", "ok": not failures, "batches": nb,
            "cells": cells, "launches": totals, "failures": failures}
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return totals, out
+
+
+def _date_sorted(tables):
+    """lineitem and orders stably sorted by their date columns: the
+    clustered load order the zone maps prune on (customer as generated)."""
+    import numpy as np
+    out = dict(tables)
+    for name, col in SORT_KEYS.items():
+        t = tables[name]
+        out[name] = t.take(np.argsort(np.asarray(t.column(col).data),
+                                      kind="stable"))
+    return out
+
+
+class _Instrument:
+    """Records, during one run, every block key the device block cache is
+    asked for (``DeviceBufferManager.get_or_put``) and the time spent
+    building imprints (``indexes.build_imprint``, which ends in the host
+    fetch of the zone maps)."""
+
+    def __init__(self):
+        from repro_torch.core import indexes
+        from repro_torch.core.device_cache import DeviceBufferManager
+        self.keys = []
+        self.imprint_ms = 0.0
+        self._restore = []
+        real_put = DeviceBufferManager.get_or_put
+        real_build = indexes.build_imprint
+
+        def get_or_put(dm, key, *a, **kw):
+            self.keys.append(key)
+            return real_put(dm, key, *a, **kw)
+
+        def build_imprint(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_build(*a, **kw)
+            finally:
+                self.imprint_ms += (time.perf_counter() - t0) * 1e3
+
+        for obj, name, fn, real in (
+                (DeviceBufferManager, "get_or_put", get_or_put, real_put),
+                (indexes, "build_imprint", build_imprint, real_build)):
+            setattr(obj, name, fn)
+            self._restore.append((obj, name, real))
+
+    def reset(self):
+        self.keys = []
+        self.imprint_ms = 0.0
+
+    def batches(self, table: str):
+        """(uploaded batch indices, gathered batch indices) of ``table``:
+        the shard component of a block key is (device, batch_rows, b, ...)
+        and a gathered batch's carries a "g" after the batch index."""
+        up = {k[3][2] for k in self.keys if k[0] == table}
+        g = {k[3][2] for k in self.keys if k[0] == table and len(k[3]) > 3}
+        return up, g
+
+    def close(self):
+        for obj, name, real in self._restore:
+            setattr(obj, name, real)
+
+
+def phase_skipping(tables, batch_rows: int, full_scale: bool):
+    """Q6, Q1 and Q3 over lineitem and orders in date order, at 1 GiB and
+    128 MiB, with data skipping on and forced off, cold and warm.  Held to:
+    bit-identical results between on and off (and across budgets and
+    repeats), rtol=1e-9 against the host tier; with skipping on,
+    ``blocks_skipped > 0`` and ``bytes_skipped_h2d > 0`` for Q6 and Q3; no
+    block of a skipped batch asked of the block cache; one step-kernel
+    launch per live batch and two imprint launches per imprint built;
+    exactly the gathered batches the skip-set implies, and — at SF 1
+    (``full_scale``) — at least one in every stream with a skip-set."""
+    import torch
+    from repro_torch.core import startup
+    from repro_torch.data import tpch_queries as Q
+    data = _date_sorted(tables)
+    counters = _launch_counters()
+    inst = _Instrument()
+    totals = {k: 0 for k in KERNELS}
+    results, cells, failures = {}, {}, []
+    gathered_streams = {}
+    try:
+        for budget in SKIP_BUDGETS:
+            for skipping in (True, False):
+                db = startup(device="cuda", device_budget=budget,
+                             device_batch_rows=batch_rows,
+                             data_skipping=skipping)
+                _load(db, data)
+                cell = {}
+                for q in SKIP_QUERIES:
+                    for run in ("cold", "warm"):
+                        ctx = f"{budget}/{'on' if skipping else 'off'}/" \
+                              f"{q}/{run}"
+                        n_imp = _n_imprints(db)
+                        inst.reset()
+                        for c in counters.values():
+                            c.reset()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = Q.ALL_QUERIES[q](db).execute(
+                            distributed=True).to_pydict()
+                        ms = (time.perf_counter() - t0) * 1e3
+                        launches = {k: c.count for k, c in counters.items()}
+                        for k in KERNELS:
+                            totals[k] += launches[k]
+                        st = db.last_stats
+                        streams = _stream_plan(db, q, batch_rows)
+                        built = _n_imprints(db) - n_imp
+                        cell[f"{q}_{run}"] = {
+                            "ms": ms, "imprint_build_ms": inst.imprint_ms,
+                            "imprints_built": built,
+                            "tier": st.device_tier,
+                            "h2d_bytes": st.device_bytes_h2d,
+                            "blocks_skipped": st.blocks_skipped,
+                            "bytes_skipped_h2d": st.bytes_skipped_h2d,
+                            "launches": launches,
+                            "live_batches": {t: len(v[0])
+                                             for t, v in streams.items()},
+                            "gathered_batches": {t: len(v[1]) for t, v
+                                                 in streams.items()}}
+                        if not st.device_tier:
+                            failures.append(f"{ctx}: ran on the host tier")
+                        expect = _expected_launches(q, streams, True, built)
+                        if launches != expect:
+                            failures.append(f"{ctx}: launches {launches}, "
+                                            f"want {expect}")
+                        for t, (live, gath, has_ss) in streams.items():
+                            up, g = inst.batches(t)
+                            if not up <= set(live):
+                                failures.append(
+                                    f"{ctx}: skipped batches of {t} asked "
+                                    f"of the cache: {sorted(up - set(live))}")
+                            if g != set(gath):
+                                failures.append(
+                                    f"{ctx}: gathered batches of {t} "
+                                    f"{sorted(g)}, want {sorted(gath)}")
+                            if skipping and has_ss:
+                                gathered_streams.setdefault(
+                                    (q, t), set()).update(g)
+                        if skipping and q in ("q6", "q3") and not (
+                                st.blocks_skipped > 0
+                                and st.bytes_skipped_h2d > 0):
+                            failures.append(f"{ctx}: nothing skipped")
+                        if not skipping and (st.blocks_skipped
+                                             or st.bytes_skipped_h2d):
+                            failures.append(f"{ctx}: skipped while off")
+                        results[(budget, skipping, q, run)] = res
+                cells[f"{budget}/{'on' if skipping else 'off'}"] = cell
+                if not skipping and budget == SKIP_BUDGETS[0]:
+                    host = {}
+                    for q in SKIP_QUERIES:
+                        t0 = time.perf_counter()
+                        host[q] = Q.ALL_QUERIES[q](db).execute().to_pydict()
+                        cell[f"{q}_host_ms"] = (time.perf_counter() - t0) * 1e3
+                db.shutdown()
+    finally:
+        inst.close()
+    for q in SKIP_QUERIES:
+        first = results[(SKIP_BUDGETS[0], True, q, "cold")]
+        for key, res in results.items():
+            if key[2] == q and not _results_equal(first, res):
+                failures.append(f"{key}: not bit-identical to skipping-on "
+                                f"cold at {SKIP_BUDGETS[0]}")
+        if not _close(first, host[q], 1e-9):
+            failures.append(f"{q}: device differs from host tier beyond "
+                            f"rtol=1e-9")
+    for (q, t), g in gathered_streams.items():
+        if full_scale and not g:
+            failures.append(f"{q}/{t}: no gathered batch ran")
+    for k in KERNELS:
+        if totals[k] == 0:
+            failures.append(f"{k} was never launched in the skipping phase")
+    out = {"phase": "skipping", "ok": not failures, "cells": cells,
+           "launches": totals,
+           "gathered_batches": {f"{q}/{t}": sorted(g)
+                                for (q, t), g in gathered_streams.items()},
+           "failures": failures}
     if failures:
         emit(out)
         raise AssertionError("; ".join(failures))
@@ -679,12 +1007,15 @@ def main(argv=None) -> int:
         totals, line = run("engine", lambda: phase_engine(
             tables, args.batch_rows, args.sf == 1.0))
         emit(line)
+        skip_totals, line = run("skipping", lambda: phase_skipping(
+            tables, args.batch_rows, args.sf == 1.0))
+        emit(line)
         state["smi"] = run("nvidia-smi", nvidia_smi_line)
     except Exception:
         return 1
 
     main_case = {"hash_group": "q1", "scan_agg": "q6", "radix_build": "probe",
-                 "radix_probe": "probe", "sort": "q3"}
+                 "radix_probe": "probe", "sort": "q3", "imprint": "l_shipdate"}
     meta = {
         "hash_group": ("src/repro_torch/csrc/hash_group.cu",
                        "src/repro/kernels/hash_group/hash_group.py:54"),
@@ -696,6 +1027,8 @@ def main(argv=None) -> int:
                         "src/repro/kernels/radix_join/radix_join.py:103"),
         "sort": ("src/repro_torch/csrc/sort.cu",
                  "src/repro/kernels/sort/sort.py:70"),
+        "imprint": ("src/repro_torch/csrc/imprint.cu",
+                    "src/repro/kernels/imprint/imprint.py:57"),
     }
     summary = []
     for name in KERNELS:
@@ -707,7 +1040,8 @@ def main(argv=None) -> int:
             return 1
         summary.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": totals[name],
+            "replaces": meta[name][1],
+            "launches": totals[name] + skip_totals[name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "wrapper_ms": c["wrapper_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -5,9 +5,9 @@ candidate lists, recast branch-free) that flow alongside the columns; rows
 are only compacted at blocking boundaries (join, group, sort, result).
 
 This is the host tier of the port: the same numpy program as the reference
-engine's, minus the spill branches and the index-assisted tactics (imprint
-selects, order-index merge joins), which arrive with the out-of-core and
-imprint slices.  Every blocking operator runs in memory.
+engine's, with its index-assisted tactics (imprint selects, order-index
+merge joins), minus the spill branches, which arrive with the out-of-core
+slice.  Every blocking operator runs in memory.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .column import Column
 from .expression import Col, EvalContext, ExprResult
 from .mal import Instr, MALProgram
 from .optimizer import split_conjuncts
-from .physplan import TierPolicy
+from .physplan import TierPolicy, _simple_range
 from .relalg import (AggregateNode, FilterNode, JoinNode, LimitNode,
                      OrderByNode, PlanNode, ProjectNode, ScanNode)
 from .types import DBType, NULL_SENTINEL, STORAGE_DTYPE, is_float
@@ -652,6 +652,32 @@ class Executor:
     def _op_select(self, ins, regs):
         p = ins.payload
         expr = p["expr"]
+        # Tactical: imprint-accelerated range select on base columns.
+        im = getattr(self.db, "index_manager", None)
+        if p.get("base_table") and im is not None \
+                and getattr(self.db, "data_skipping", True):
+            rng = _simple_range(expr)
+            if rng is not None:
+                cname, lo, hi, lo_strict, hi_strict = rng
+                hit = im.imprint_mask(p["base_table"], cname, lo, hi,
+                                      lo_strict, hi_strict)
+                if hit is not None:
+                    mask, skipped = hit
+                    self.stats.index_hits += 1
+                    self.stats.imprint_blocks_skipped += skipped
+                    if skipped and self.bufman is not None:
+                        # rows in non-candidate blocks never get a True
+                        # mask bit; account the filter column's bytes in
+                        # those blocks (a logical estimate — never read)
+                        from .indexes import IMPRINT_BLOCK
+                        col = self.db.catalog.table(
+                            p["base_table"]).column(cname)
+                        rows = min(skipped * IMPRINT_BLOCK, len(col))
+                        self.bufman.bump(
+                            blocks_skipped=skipped,
+                            bytes_skipped_spill=rows
+                            * col.data.dtype.itemsize)
+                    return mask
         r = expr.eval(self._ctx(p["binding"], regs))
         vals = np.asarray(r.values) != 0
         if r.null is not None:
@@ -710,8 +736,19 @@ class Executor:
         rsel = np.nonzero((~rnull) if rmask is None else (rmask & ~rnull))[0]
         lc, rc = lc[lsel], rc[rsel]
 
+        # Tactical: persisted order index on an unfiltered base build side
+        # turns the build phase into a no-op (merge-join path).
+        r_order = None
+        im = getattr(self.db, "index_manager", None)
+        if p.get("right_base") and rmask is None and nk == 1 \
+                and im is not None:
+            r_order = im.auto_order_index(p["right_base"],
+                                          p["right_keys"][0], rc)
+            if r_order is not None:
+                self.stats.index_hits += 1
+
         how = p["how"]
-        lidx, ridx = _hash_join(lc, rc, how)
+        lidx, ridx = _hash_join(lc, rc, how, r_order=r_order)
         if how in ("semi", "anti"):
             return (lsel[lidx],)
         glidx = lsel[lidx]

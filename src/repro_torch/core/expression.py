@@ -56,6 +56,16 @@ def _astype(v, dtype):
     return v.astype(dtype)
 
 
+def descale(f, scale: int):
+    """``f / 10**scale`` with IEEE division, numpy's arithmetic.  torch on
+    CUDA turns division by a Python scalar into multiplication by its
+    reciprocal, which can differ from the quotient in the last bit; a
+    divisor tensor on ``f``'s device keeps the division."""
+    if isinstance(f, torch.Tensor):
+        return f / f.new_full((), 10 ** scale)
+    return f / (10 ** scale)
+
+
 class TorchNamespace:
     """The ``xp`` namespace over torch tensors on one device: the subset of
     numpy's functions the expression tree calls, with numpy's argument
@@ -139,7 +149,7 @@ class ExprResult:
         """Numeric decode to float64 (DECIMAL -> scaled float)."""
         v = self.values
         if self.dbtype == DBType.DECIMAL:
-            return _astype(v, np.float64) / (10 ** self.scale)
+            return descale(_astype(v, np.float64), self.scale)
         return _astype(v, np.float64)
 
 

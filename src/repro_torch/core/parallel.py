@@ -45,6 +45,16 @@ the group build's payload with ``radix_probe`` and sorts with the bitonic
 ``sort`` kernel (``kernels/sort``).  min/max partials stay torch
 ``scatter_reduce`` (the reference computes them outside any kernel too).
 
+Imprint data skipping (``physplan.SkipSet``): every stream — the scan-agg
+batch stream and the join tier's build and probe streams — drops the
+batches whose imprint blocks all fail a filter conjunct (never built,
+never uploaded, never stepped), and uploads only the candidate slots of a
+boundary batch (the gathered layout), which the step expands back to the
+full batch, every row at its batch position and the filler rows invalid,
+before any kernel runs.  The kernels therefore see the same tiles with the
+same rows either way, and results are bit-identical with skipping on and
+off.
+
 Nothing on the device path catches an exception: a build, launch or kernel
 failure propagates to the caller.  Two outcomes put a query on the host
 tier: the planner's plan-time decision (``"host"``), and the device join's
@@ -54,6 +64,7 @@ the host join handles.
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -69,11 +80,11 @@ from .device_cache import (DeviceBlockKeys, DeviceBudgetError,
                            DeviceBufferManager)
 from .executor import Executor, compile_plan
 from .expression import (BinOp, Col, EvalContext, Expr, ExprResult,
-                         TorchNamespace)
+                         TorchNamespace, descale)
 from .physplan import (AGG_RESULT_NAME, DeviceBuild, JoinAggSpec,
-                       PhysicalPlan, ScanAggSpec, TIER_DEVICE_RESIDENT,
-                       _simple_range, choose_device_tier, partial_layout,
-                       scan_agg_geometry)
+                       PhysicalPlan, ScanAggSpec, SkipSet,
+                       TIER_DEVICE_RESIDENT, _simple_range,
+                       choose_device_tier, partial_layout, scan_agg_geometry)
 from .relalg import PlanNode
 from .types import DBType, NULL_SENTINEL
 
@@ -324,12 +335,54 @@ def finalize_partials(spec: ScanAggSpec, partial: np.ndarray) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
+def _gather_expand(gather, inv, valid, cols):
+    """Rebuild a batch's full rows from its gathered (compact) slots.
+    ``gather = (ublock, L)``: the batch is ``L`` slots of ``ublock`` rows.
+    ``inv`` maps each slot to its position among the ``q`` uploaded
+    candidate slots (-1 = not uploaded).  Filler rows get ``valid =
+    False`` and zero values, which is the state the full upload's rows
+    reach after masking: zone-map soundness guarantees a
+    non-candidate slot's rows all fail some conjunct, and a masked row
+    contributes the combine identity whatever its values.  Every row keeps
+    its batch position, so each kernel sums the same tiles in the same
+    order as on the full batch — bit-identical partials."""
+    ublock, n_slots = gather
+    q = valid.shape[0] // ublock
+    hit = (inv >= 0)[:, None]
+    idx = inv.clamp(0, q - 1).to(torch.int64)
+
+    def expand(comp, fill):
+        rows = comp.reshape(q, ublock)[idx]
+        return torch.where(hit, rows, fill).reshape(n_slots * ublock)
+
+    return expand(valid, False), [expand(c, 0) for c in cols]
+
+
+def _gathered(step, gather, n_lead: int):
+    """The gathered variant of a batch step: ``step(*lead, valid, *cols)``
+    becomes ``step(*lead, inv, valid_compact, *cols_compact)`` (the block
+    order of a gathered batch, ``#ginv`` first), expanding the batch on
+    the device before the step runs.  ``gather`` None: the step itself."""
+    if gather is None:
+        return step
+
+    def gstep(*args):
+        lead, (inv, valid), cols = (args[:n_lead],
+                                    args[n_lead:n_lead + 2],
+                                    args[n_lead + 2:])
+        valid, full = _gather_expand(gather, inv, valid, cols)
+        return step(*lead, valid, *full)
+
+    return gstep
+
+
 def build_batch_step(spec: ScanAggSpec, meta: dict, device,
-                     route: Optional[ScanAggRoute]):
+                     route: Optional[ScanAggRoute], gather=None):
     """(init_fn, step_fn): ``step(carry, valid, *cols) -> carry'`` — the
     partial fragment plus the carry combine (add / min / max per column),
     out of place.  ``init_fn`` materializes the combine identity on the
-    device."""
+    device.  With ``gather = (ublock, L)`` (intra-batch skipping) the step
+    takes ``step(carry, inv, valid_compact, *cols_compact)``."""
     layout = partial_layout(spec)
     frag = make_partial_fragment(spec, meta, device, route)
     kinds = torch.as_tensor(layout.kinds, device=device)
@@ -342,7 +395,7 @@ def build_batch_step(spec: ScanAggSpec, meta: dict, device,
     def init():
         return identity.expand(g, k).clone()
 
-    return init, step
+    return init, _gathered(step, gather, 1)
 
 
 def _combine(kinds, carry, part):
@@ -379,17 +432,19 @@ def _meta_key(columns, meta: dict) -> tuple:
 
 
 def _cached_batch_step(spec: ScanAggSpec, meta: dict, device,
-                       batch_rows: int, route: Optional[ScanAggRoute]):
+                       batch_rows: int, route: Optional[ScanAggRoute],
+                       gather=None):
     key = ("batch", spec.table, repr(spec.conjuncts),
            tuple(spec.group_keys),
            tuple(spec.key_domains),     # a shifted key domain must not
                                         # reuse a stale step
            tuple((a.fn, repr(a.expr)) for a in spec.aggs),
            _meta_key(spec.columns, meta),
-           spec.n_groups, batch_rows, str(device), route)
+           spec.n_groups, batch_rows, str(device), route, gather)
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
-            _STEP_CACHE[key] = build_batch_step(spec, meta, device, route)
+            _STEP_CACHE[key] = build_batch_step(spec, meta, device, route,
+                                                gather=gather)
         return _STEP_CACHE[key]
 
 
@@ -416,9 +471,10 @@ def _join_edge_mask(arrays, meta: dict, mask, edge_cols, domains, btabs):
 
 
 def build_join_build_step(build: DeviceBuild, meta: dict, device,
-                          child_domains):
+                          child_domains, gather=None):
     """(init_fn, step_fn) for one join build table:
-    ``step(btab, child_btabs, valid, *cols) -> btab'``.
+    ``step(btab, child_btabs, valid, *cols) -> btab'`` (with ``gather``:
+    ``step(btab, child_btabs, inv, valid_compact, *cols_compact)``).
 
     One batch of the build table's stream is filtered (its own conjuncts +
     NULL/domain/presence gating against already-built child tables) and
@@ -455,25 +511,27 @@ def build_join_build_step(build: DeviceBuild, meta: dict, device,
         return torch.zeros((card, width), dtype=torch.float64,
                            device=device)
 
-    return init, step
+    return init, _gathered(step, gather, 2)
 
 
 def _cached_join_build_step(build: DeviceBuild, meta: dict, device,
-                            batch_rows: int, child_domains):
+                            batch_rows: int, child_domains, gather=None):
     key = ("jbuild", build.table, repr(build.conjuncts), build.key,
            build.domain, tuple(build.payload), tuple(build.probe_edges),
            tuple(child_domains), _meta_key(build.columns, meta),
-           batch_rows, str(device))
+           batch_rows, str(device), gather)
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
             _STEP_CACHE[key] = build_join_build_step(
-                build, meta, device, child_domains)
+                build, meta, device, child_domains, gather=gather)
         return _STEP_CACHE[key]
 
 
-def build_join_probe_step(spec: JoinAggSpec, meta: dict, device):
+def build_join_probe_step(spec: JoinAggSpec, meta: dict, device,
+                          gather=None):
     """(init_fn, step_fn) for the probe (fact) side of a device join:
-    ``step(carry, edge_btabs, valid, *cols) -> carry'``.
+    ``step(carry, edge_btabs, valid, *cols) -> carry'`` (with ``gather``:
+    ``step(carry, edge_btabs, inv, valid_compact, *cols_compact)``).
 
     The probe phase IS the scan-agg batch step over the probe table —
     identical prologue, partials and carry combine — plus presence gating
@@ -504,11 +562,11 @@ def build_join_probe_step(spec: JoinAggSpec, meta: dict, device):
     def init():
         return identity.expand(g, k).clone()
 
-    return init, step
+    return init, _gathered(step, gather, 2)
 
 
 def _cached_join_probe_step(spec: JoinAggSpec, meta: dict, device,
-                            batch_rows: int):
+                            batch_rows: int, gather=None):
     pspec = spec.probe_spec()
     key = ("jprobe", spec.probe_table, repr(pspec.conjuncts),
            tuple(pspec.group_keys), tuple(pspec.key_domains),
@@ -516,10 +574,11 @@ def _cached_join_probe_step(spec: JoinAggSpec, meta: dict, device,
            tuple(spec.probe_edges),
            tuple(b.domain for b in spec.builds),
            _meta_key(pspec.columns, meta), pspec.n_groups,
-           batch_rows, str(device))
+           batch_rows, str(device), gather)
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
-            _STEP_CACHE[key] = build_join_probe_step(spec, meta, device)
+            _STEP_CACHE[key] = build_join_probe_step(spec, meta, device,
+                                                     gather=gather)
         return _STEP_CACHE[key]
 
 
@@ -568,7 +627,7 @@ def _device_sort_key(v, dbt, scale: int, desc: bool):
     if dbt == DBType.VARCHAR:
         k, nulls = v, v == 0
     elif dbt == DBType.DECIMAL:
-        k = v / (10 ** scale)
+        k = descale(v, scale)
         nulls = v == float(NULL_SENTINEL[dbt])
     elif dbt in (DBType.FLOAT64, DBType.FLOAT32):
         k, nulls = v, torch.isnan(v)
@@ -683,10 +742,14 @@ class DistributedScanAgg:
     The merge carry (a dirty intermediate block) may itself be evicted
     under a tight budget: it is copied back to host and transparently
     re-uploaded — the only writeback case, since base-column blocks are
-    clean by definition."""
+    clean by definition.
+
+    An imprint skip-set (``physplan.SkipSet``) cuts the stream to its live
+    batches and gathers the candidate slots of boundary batches."""
 
     def __init__(self, db, spec: ScanAggSpec,
-                 batch_rows: Optional[int] = None):
+                 batch_rows: Optional[int] = None,
+                 skip_set: Optional[SkipSet] = None):
         self.db = db
         self.spec = spec
         self.devman: DeviceBufferManager = db.device_manager
@@ -715,6 +778,48 @@ class DistributedScanAgg:
         self.carry_nbytes = geom.carry_nbytes
         self.batch_bytes = geom.batch_bytes
         self.resident_bytes = geom.resident_bytes
+        # imprint-derived skip-set: intersected with the batch geometry so
+        # non-qualifying batches are never built, never prefetched and
+        # never uploaded.  Execution-time re-validation: a skip-set derived
+        # against another table version (an append raced the lowering) is
+        # discarded, not half-trusted.
+        if skip_set is not None and not skip_set.valid_for(self.table):
+            skip_set = None
+        self.skip_set = skip_set
+        m = self.batch_rows
+        self.live_batches = [
+            b for b in range(self.n_batches)
+            if skip_set is None or skip_set.batch_qualifies(
+                b * m, min(self.n_rows, b * m + m))]
+        # intra-batch skipping (gather): a boundary batch — one the zone
+        # maps could not skip whole — usually still holds non-candidate
+        # imprint blocks.  Cut the batch into L skip-aligned slots of
+        # ``ublock`` rows and upload only its q candidate slots plus an
+        # (L,) int32 inverse map; the step rebuilds the full rows on the
+        # device (``_gather_expand``).  A batch whose every slot qualifies
+        # keeps the full layout.  The reference pads q to one power of two
+        # for every gathered batch, so that one jitted trace serves them
+        # all; eager torch has no trace to share, so each batch uploads
+        # exactly its own candidate slots (with the shared q, date-sorted
+        # TPC-H at SF 1 gathers no batch: ROADMAP.md §4).  One card:
+        # shard count 1.
+        self.gather = None
+        self._gather_sel: dict = {}
+        if skip_set is not None and self.live_batches:
+            ublock = math.gcd(skip_set.block, m)
+            L = m // ublock
+            for b in self.live_batches:
+                s0 = b * m
+                e = min(self.n_rows, s0 + m)
+                sel = tuple(
+                    slot for slot in range(L)
+                    if skip_set.batch_qualifies(
+                        s0 + slot * ublock,
+                        min(s0 + slot * ublock + ublock, e)))
+                if len(sel) < L:              # this batch has gaps: gather
+                    self._gather_sel[b] = sel
+            if self._gather_sel:
+                self.gather = (ublock, L)
         self.meta = {}
         for c in spec.columns:
             col = self.table.column(c)
@@ -735,12 +840,18 @@ class DistributedScanAgg:
         exactly ``batch_rows`` rows.  The shard component of the key is
         ``(device, batch_rows, b)``: a different ``device_batch_rows`` cuts
         different row ranges, so a bare batch index would serve the wrong
-        rows as a cache hit."""
+        rows as a cache hit.  A gathered batch yields its ``#ginv`` map
+        first, then the valid mask and the columns of its candidate slots
+        (``ublock`` rows each); the selection joins the shard key, so two
+        queries whose conjuncts pick different slots never alias blocks."""
         spec, table = self.spec, self.table
         m = self.batch_rows
         s = b * m
         e = min(self.n_rows, s + m)
         vkey = self._batch_version_key(b)
+        if b in self._gather_sel:
+            yield from self._gathered_builders(b, s, e, vkey)
+            return
         shard = (str(self.device), m, b)
 
         def bvalid():
@@ -759,6 +870,43 @@ class DistributedScanAgg:
 
             yield (DeviceBlockKeys.column(spec.table, c, vkey, shard),
                    bcol)
+
+    def _gathered_builders(self, b: int, s: int, e: int, vkey):
+        ublock, L = self.gather
+        sel = self._gather_sel[b]
+        q = len(sel)
+        table = self.spec.table
+        shard = (str(self.device), self.batch_rows, b, "g", sel)
+
+        def rows(slot):                 # (first row, real rows) of a slot
+            ss = s + slot * ublock
+            return ss, max(0, min(ss + ublock, e) - ss)
+
+        def binv():
+            a = np.full(L, -1, dtype=np.int32)
+            a[list(sel)] = np.arange(len(sel), dtype=np.int32)
+            return a
+
+        yield DeviceBlockKeys.column(table, "#ginv", vkey, shard), binv
+
+        def bvalid():
+            a = np.zeros(q * ublock, dtype=bool)
+            for j, slot in enumerate(sel):
+                a[j * ublock:j * ublock + rows(slot)[1]] = True
+            return a
+
+        yield DeviceBlockKeys.valid(table, vkey, shard), bvalid
+        for c in self.spec.columns:
+            col = self.table.column(c)
+
+            def bcol(col=col):
+                a = np.zeros(q * ublock, dtype=col.data.dtype)
+                for j, slot in enumerate(sel):
+                    ss, nv = rows(slot)
+                    a[j * ublock:j * ublock + nv] = col.data[ss:ss + nv]
+                return a
+
+            yield DeviceBlockKeys.column(table, c, vkey, shard), bcol
 
     def _batch_version_key(self, b: int):
         """Epoch-keyed caching (delta store): a batch whose rows lie
@@ -792,18 +940,45 @@ class DistributedScanAgg:
             prefetched.add(key)
             query_keys.add(key)
 
+    def _account_skipping(self) -> None:
+        """Bump what the zone maps saved: every block of every whole
+        skipped batch would have been padded to batch_rows and uploaded.
+        A skipped batch contributes exactly the carry-combine identity
+        (+0 / +inf / -inf): not running its step leaves the carry
+        bit-identical to running it."""
+        live = self.live_batches
+        if len(live) >= self.n_batches:
+            return
+        blk = self.skip_set.block
+        live_set = set(live)
+        skipped_blocks = 0
+        for b in range(self.n_batches):
+            if b in live_set:
+                continue
+            s = b * self.batch_rows
+            e = min(self.n_rows, s + self.batch_rows)
+            skipped_blocks += -(-(e - s) // blk)
+        self.devman.bump(
+            blocks_skipped=skipped_blocks,
+            bytes_skipped_h2d=(self.n_batches - len(live))
+            * self.batch_rows * self.row_bytes)
+
     # requires-lock: _DEVICE_DISPATCH_LOCK
     def _stream_batches(self, query_keys: set, pinned: set,
                         prefetched: set):
-        """Generator driving the batches through the block cache: yields
-        ``(b, arrs, nxt)`` per batch — the batch index, the device blocks
-        (pinned, and ordered after their copies on the compute stream), and
-        the NEXT batch index (None on the last batch).  The caller pins its
-        own carry state *before* calling ``_issue_prefetch(nxt, ...)`` (so
-        double-buffering can never evict it), dispatches its step, and
-        resumes the generator, which unpins the consumed batch."""
+        """Generator driving the live batches through the block cache:
+        yields ``(b, arrs, nxt)`` per batch — the batch index (the caller
+        picks the gathered or full step by membership in ``_gather_sel``),
+        the device blocks (pinned, and ordered after their copies on the
+        compute stream), and the NEXT live batch index (None on the last
+        batch).  The caller pins its own carry state *before* calling
+        ``_issue_prefetch(nxt, ...)`` (so double-buffering can never evict
+        it), dispatches its step, and resumes the generator, which unpins
+        the consumed batch."""
         devman = self.devman
-        for b in range(self.n_batches):
+        self._account_skipping()
+        live = self.live_batches
+        for i, b in enumerate(live):
             arrs = []
             batch_keys = []
             for key, build in self._builders(b):
@@ -821,7 +996,16 @@ class DistributedScanAgg:
                 arrs.append(arr)
             for key in batch_keys:
                 devman.ready(key)
-            yield b, arrs, (b + 1 if b + 1 < self.n_batches else None)
+            if b in self._gather_sel:
+                # intra-batch savings, counted at consumption: the full
+                # upload would have moved L slots, the gathered one moves
+                # its q candidates — whether the blocks were cache hits or
+                # not
+                ublock, L = self.gather
+                q = len(self._gather_sel[b])
+                devman.bump(bytes_skipped_h2d=(L - q) * ublock
+                            * self.row_bytes)
+            yield b, arrs, (live[i + 1] if i + 1 < len(live) else None)
             for key in batch_keys:
                 devman.unpin(key)
                 pinned.discard(key)
@@ -842,6 +1026,11 @@ class DistributedScanAgg:
         spec = self.spec
         init_fn, step = _cached_batch_step(spec, self.meta, self.device,
                                            self.batch_rows, self.route)
+        step_g = None
+        if self.gather is not None:
+            _, step_g = _cached_batch_step(spec, self.meta, self.device,
+                                           self.batch_rows, self.route,
+                                           gather=self.gather)
         carry_key = DeviceBlockKeys.carry()
         query_keys: set = {carry_key}
         pinned: set = set()
@@ -861,7 +1050,8 @@ class DistributedScanAgg:
                 devman.pin(carry_key)
                 if nxt is not None:
                     self._issue_prefetch(nxt, prefetched, query_keys)
-                carry = step(carry, *arrs)              # async on device
+                st = step_g if b in self._gather_sel else step
+                carry = st(carry, *arrs)                # async on device
                 devman.unpin(carry_key)
                 devman.adopt(carry_key, carry, nbytes=self.carry_nbytes,
                              dirty=True)
@@ -903,20 +1093,23 @@ class DistributedJoinAgg:
     reach the host."""
 
     def __init__(self, db, spec: JoinAggSpec,
-                 batch_rows: Optional[int] = None):
+                 batch_rows: Optional[int] = None, skip_sets=None):
         self.spec = spec
         self.pspec = spec.probe_spec()
-        self.probe = DistributedScanAgg(db, self.pspec,
-                                        batch_rows=batch_rows)
+        skip_sets = skip_sets or {}
+        self.probe = DistributedScanAgg(
+            db, self.pspec, batch_rows=batch_rows,
+            skip_set=skip_sets.get(spec.probe_table))
         self.devman = self.probe.devman
         self.device = self.probe.device
         # build-side streams: bare column streams (no grouping) — the
-        # build step applies the build's own conjuncts
+        # build step applies the build's own conjuncts; a build skip-set
+        # is sound because a masked row scatter-adds nothing
         self.builds = [
             DistributedScanAgg(
                 db, ScanAggSpec(b.table, [], [], [], [], 1,
                                 list(b.columns)),
-                batch_rows=batch_rows)
+                batch_rows=batch_rows, skip_set=skip_sets.get(b.table))
             for b in spec.builds]
         self.delta_rows = self.probe.delta_rows \
             + sum(s.delta_rows for s in self.builds)
@@ -942,6 +1135,11 @@ class DistributedJoinAgg:
                 init_fn, step = _cached_join_build_step(
                     b, stream.meta, self.device, stream.batch_rows,
                     child_domains)
+                step_g = None
+                if stream.gather is not None:
+                    _, step_g = _cached_join_build_step(
+                        b, stream.meta, self.device, stream.batch_rows,
+                        child_domains, gather=stream.gather)
                 key = DeviceBlockKeys.carry()
                 btab_keys.append(key)
                 query_keys.add(key)
@@ -951,11 +1149,12 @@ class DistributedJoinAgg:
                 # reserved state_bytes for exactly this residency)
                 btab = devman.adopt(key, init_fn(), nbytes=b.table_bytes,
                                     dirty=True, pin=True)
-                for _bb, arrs, nxt in stream._stream_batches(
+                for bb, arrs, nxt in stream._stream_batches(
                         query_keys, pinned, prefetched):
                     if nxt is not None:
                         stream._issue_prefetch(nxt, prefetched, query_keys)
-                    btab = step(btab, children, *arrs)
+                    st = step_g if bb in stream._gather_sel else step
+                    btab = st(btab, children, *arrs)
                     devman.adopt(key, btab, nbytes=b.table_bytes,
                                  dirty=True, pin=True)
                 # runtime uniqueness witness: the single-key gid is only
@@ -967,10 +1166,15 @@ class DistributedJoinAgg:
             init_fn, pstep = _cached_join_probe_step(
                 self.spec, self.probe.meta, self.device,
                 self.probe.batch_rows)
+            pstep_g = None
+            if self.probe.gather is not None:
+                _, pstep_g = _cached_join_probe_step(
+                    self.spec, self.probe.meta, self.device,
+                    self.probe.batch_rows, gather=self.probe.gather)
             edge_btabs = [btabs[bi] for bi, _ in self.spec.probe_edges]
             carry = devman.adopt(carry_key, init_fn(),
                                  nbytes=self.probe.carry_nbytes, dirty=True)
-            for _bb, arrs, nxt in self.probe._stream_batches(
+            for bb, arrs, nxt in self.probe._stream_batches(
                     query_keys, pinned, prefetched):
                 # the carry is unpinned between batches so a tight budget
                 # may have evicted it (writeback); re-upload before use
@@ -982,7 +1186,8 @@ class DistributedJoinAgg:
                 devman.pin(carry_key)
                 if nxt is not None:
                     self.probe._issue_prefetch(nxt, prefetched, query_keys)
-                carry = pstep(carry, edge_btabs, *arrs)
+                st = pstep_g if bb in self.probe._gather_sel else pstep
+                carry = st(carry, edge_btabs, *arrs)
                 devman.unpin(carry_key)
                 devman.adopt(carry_key, carry,
                              nbytes=self.probe.carry_nbytes, dirty=True)
@@ -1089,7 +1294,8 @@ class ParallelExecutor(Executor):
         table = self.db.catalog.table(spec.table)
         agg = DistributedScanAgg(
             self.db, spec,
-            batch_rows=getattr(self.db, "device_batch_rows", None))
+            batch_rows=getattr(self.db, "device_batch_rows", None),
+            skip_set=phys.core_skip_set())
         tier = "resident" if phys.agg_tier == TIER_DEVICE_RESIDENT \
             else "streamed"
         fields, stats_base = self._stats_window()
@@ -1126,9 +1332,11 @@ class ParallelExecutor(Executor):
         (finalize + compact + payload gather + fused ORDER BY, all in
         device memory)."""
         jspec = phys.join_agg
+        tables = [jspec.probe_table] + [b.table for b in jspec.builds]
         agg = DistributedJoinAgg(
             self.db, jspec,
-            batch_rows=getattr(self.db, "device_batch_rows", None))
+            batch_rows=getattr(self.db, "device_batch_rows", None),
+            skip_sets={t: phys.skip_set_for_table(t) for t in tables})
         fields, stats_base = self._stats_window()
         dm = agg.devman.stats
         base = stats_base(dm, fields)

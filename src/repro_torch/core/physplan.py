@@ -21,10 +21,10 @@ choosing strategies from data statistics rather than per-API code paths):
    surfaced through ``Query.explain(physical=True)`` and
    ``ExecStats.plan_repr``.
 
-This package holds the scan-agg and join-agg halves of the planner:
-imprint skip-sets (``derive_skip_sets``) and the spill tier's routing wait
-for their slices.  The device runs on one card, so the shard count is 1
-and there is no mesh.
+This package holds the scan-agg and join-agg halves of the planner and the
+imprint skip-sets (``derive_skip_sets``); the spill tier's routing waits
+for its slice.  The device runs on one card, so the shard count is 1 and
+there is no mesh.
 """
 
 from __future__ import annotations
@@ -677,6 +677,93 @@ def _simple_range(expr: Expr):
     return l.name, lo, hi, lo_s, hi_s
 
 
+@dataclass
+class SkipSet:
+    """Per-scan block-qualification bitmap derived from imprints at plan
+    time.
+
+    ``cand[b]`` is True when imprint block ``b`` *may* contain rows
+    satisfying every simple-range filter conjunct on the scan — the AND of
+    each conjunct's zone-map candidate bitmap, so it is a sound superset of
+    the qualifying blocks (a block is dropped only when some conjunct is
+    provably unsatisfiable there).  The skip-set is advisory: every tier
+    still evaluates the full predicate on the blocks it does read.
+
+    Skip-sets are derived against one table version and re-validated with
+    ``valid_for`` at execution time; cache keys carry table versions too,
+    so a stale bitmap is never consumed."""
+    table: str
+    version: int
+    block: int                    # rows per imprint block
+    n_rows: int
+    cand: np.ndarray              # (n_blocks,) bool candidate bitmap
+    columns: tuple                # filter columns the bitmap derives from
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.cand)
+
+    @property
+    def n_skipped(self) -> int:
+        return int((~self.cand).sum())
+
+    def valid_for(self, table) -> bool:
+        return (getattr(table, "version", None) == self.version
+                and table.num_rows == self.n_rows)
+
+    def batch_qualifies(self, s: int, e: int) -> bool:
+        """May the row range [s, e) contain a qualifying row?"""
+        if e <= s:
+            return False
+        return bool(self.cand[s // self.block:
+                              (e - 1) // self.block + 1].any())
+
+
+def derive_skip_sets(plan: PlanNode, db) -> dict:
+    """Walk ``Filter(Scan)`` shapes over base tables and intersect each
+    simple-range conjunct's imprint candidate bitmap into one ``SkipSet``
+    per scan, keyed by ``id(scan_node)`` (plan-cache copies are shallow, so
+    the normalized plan objects — and hence the keys — are shared).
+
+    Gated on ``db.data_skipping`` (the forced-off knob) and on the database
+    having an ``IndexManager``; scans with no applicable imprint simply get
+    no entry."""
+    out: dict[int, SkipSet] = {}
+    im = getattr(db, "index_manager", None)
+    if im is None or not getattr(db, "data_skipping", True):
+        return out
+
+    def visit(node: PlanNode) -> None:
+        if isinstance(node, FilterNode) and isinstance(node.child, ScanNode):
+            scan = node.child
+            table = db.catalog.tables.get(scan.table)
+            if table is not None:
+                cand = None
+                block = 0
+                cols: list[str] = []
+                for conj in split_conjuncts(node.predicate):
+                    rng = _simple_range(conj)
+                    if rng is None:
+                        continue
+                    cname, lo, hi, lo_s, hi_s = rng
+                    info = im.candidate_info(scan.table, cname, lo, hi,
+                                             lo_s, hi_s)
+                    if info is None:
+                        continue
+                    c, block, _ = info
+                    cand = c.copy() if cand is None else (cand & c)
+                    cols.append(cname)
+                if cand is not None:
+                    out[id(scan)] = SkipSet(
+                        scan.table, table.version, block, table.num_rows,
+                        cand, tuple(cols))
+        for c in node.children:
+            visit(c)
+
+    visit(plan)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # normalization: entry points converge to identical shapes
 # ---------------------------------------------------------------------------
@@ -881,6 +968,9 @@ class PhysicalPlan:
     # aggregate (otherwise the observation is ambiguous).
     group_card_hint: Optional[int] = None
     demote_reason: str = ""               # why a device core runs on host
+    # imprint-derived skip-sets keyed by id(scan node) — shared by shallow
+    # plan-cache copies because the normalized plan objects are shared
+    skip_sets: dict = field(default_factory=dict)
     _reservations: Optional[tuple] = None   # cached total_reservations()
 
     # -- queries --------------------------------------------------------------
@@ -925,6 +1015,36 @@ class PhysicalPlan:
                 device = min(device, db)
             self._reservations = (int(host), int(device))
         return self._reservations
+
+    def skip_set_for(self, node: PlanNode) -> Optional[SkipSet]:
+        return self.skip_sets.get(id(node))
+
+    def core_skip_set(self) -> Optional[SkipSet]:
+        """The skip-set attached to the scan-agg core's base scan, if any
+        (what ``DistributedScanAgg`` intersects with its batch geometry)."""
+        node: Optional[PlanNode] = self.agg_core
+        while node is not None:
+            if isinstance(node, ScanNode):
+                return self.skip_sets.get(id(node))
+            node = node.children[0] if node.children else None
+        return None
+
+    def skip_set_for_table(self, name: str) -> Optional[SkipSet]:
+        """The skip-set attached to the (unique, by the join matcher's
+        no-self-join rule) base scan of ``name`` — what the per-table
+        streams of a device join consult on the probe and build sides."""
+        for n in _walk_nodes(self.plan):
+            if isinstance(n, ScanNode) and n.table == name:
+                ss = self.skip_sets.get(id(n))
+                if ss is not None:
+                    return ss
+        return None
+
+    def _skip_note(self, node: PlanNode) -> str:
+        ss = self.skip_set_for(node)
+        if ss is None:
+            return ""
+        return f"(skip: {ss.n_skipped}/{ss.n_blocks} blocks)"
 
     def _delta_note(self, node: PlanNode) -> str:
         """Merge-on-read visibility in EXPLAIN: a base-table scan whose
@@ -996,6 +1116,9 @@ class PhysicalPlan:
             if self.demote_reason:
                 extra += f" ({self.demote_reason})"
             detail = f"{detail} {extra}".strip()
+        note = self._skip_note(node)
+        if note:
+            detail = f"{detail} {note}".strip()
         dnote = self._delta_note(node)
         if dnote:
             detail = f"{detail} {dnote}".strip()
@@ -1025,6 +1148,9 @@ class PhysicalPlan:
 
         def fused(n: PlanNode) -> PhysicalOp:
             d = "(fused)"
+            note = self._skip_note(n)
+            if note:
+                d = f"{d} {note}"
             dnote = self._delta_note(n)
             if dnote:
                 d = f"{d} {dnote}"
@@ -1079,6 +1205,10 @@ def plan_physical(plan: PlanNode, db, *, do_optimize: bool = True,
                      for n in _walk_nodes(plan))
         if n_aggs == 1:
             phys.group_card_hint = int(group_card_hint)
+    # imprint-driven data skipping (paper §3.1): the device batch streams
+    # and the host program's selects consume the same plan-time skip-sets,
+    # so derivation happens before the host-only early return
+    phys.skip_sets = derive_skip_sets(plan, db)
     if not distributed:
         # the sequential host path never consumes the scan-agg spec, and
         # matching is not free (dense-domain detection scans each group

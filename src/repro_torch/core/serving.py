@@ -248,7 +248,12 @@ class PlanCache:
                 None if bm is None else bm.budget,
                 None if dm is None else dm.budget,
                 getattr(db, "device_batch_rows", None),
-                str(getattr(db, "device", "")), promoted)
+                str(getattr(db, "device", "")), promoted,
+                # imprint-driven skipping: cached plans carry skip-sets, so
+                # the forced-off knob must never be served a skipping plan
+                # (and vice versa); skip-sets bind a table version, which
+                # ``versions`` already keys on
+                bool(getattr(db, "data_skipping", True)))
 
     @staticmethod
     def shape_key(plan: PlanNode, distributed: bool) -> tuple:

@@ -10,9 +10,9 @@ The API mirrors MonetDBLite's C API:
     db.shutdown()                      # in-process shutdown, state released
 
 This is the in-memory database of the port.  Persistence (``path``), the
-SQL front-end, out-of-core execution (``memory_budget``) and imprint data
-skipping (``data_skipping=True``) belong to later slices and raise
-``NotImplementedError`` naming their slice.
+SQL front-end and out-of-core execution (``memory_budget``) belong to later
+slices and raise ``NotImplementedError`` naming their slice.  Imprint data
+skipping (``data_skipping``) is on by default, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .executor import Executor
+from .indexes import IndexManager
 from .relalg import PlanNode, Query, ScanNode
 from .table import Table
 from .transactions import Transaction, TransactionManager
@@ -38,9 +39,6 @@ _snapshot_ns = itertools.count(1)
 PERSISTENCE_SLICE = ("a database path (persistence) belongs to the "
                      "persistence slice of repro_torch, which is not ported "
                      "yet; call startup() without a path")
-IMPRINT_SLICE = ("data_skipping=True (imprint zone maps) belongs to the "
-                 "imprint slice of repro_torch, which is not ported yet; "
-                 "results are bit-identical with data_skipping=False")
 SQL_SLICE = ("SQL text belongs to the SQL front-end slice of repro_torch, "
              "which is not ported yet; pass a builder Query")
 
@@ -90,22 +88,23 @@ class Database:
                  memory_budget: Optional[int] = None,
                  device_budget: Optional[int] = None,
                  device_batch_rows: Optional[int] = None,
-                 data_skipping: bool = False,
+                 data_skipping: bool = True,
                  device="cuda"):
         from .buffers import BufferManager
         from .device_cache import DeviceBufferManager
         from .serving import AdmissionGate, PlanCache
         if path is not None:
             raise NotImplementedError(PERSISTENCE_SLICE)
-        if data_skipping:
-            raise NotImplementedError(IMPRINT_SLICE)
         self.path = None
         self.memory_budget = memory_budget
         self.device_budget = device_budget
         self.device_batch_rows = device_batch_rows
-        self.data_skipping = False
+        self.data_skipping = data_skipping
         self.device = _resolve_device(device)
         self.catalog = Catalog()
+        # imprints (built by the imprint kernel on ``device``) and order
+        # indexes, keyed by table version
+        self.index_manager = IndexManager(self)
         self.txn_manager = TransactionManager()
         self._shutdown = False
         # per-thread last_stats view: one mutable attribute would be
@@ -132,6 +131,8 @@ class Database:
         if self._shutdown:
             return
         self.catalog.tables.clear()
+        self.index_manager.imprints.clear()
+        self.index_manager.order_indexes.clear()
         self.buffer_manager.cleanup()
         self.device_manager.cleanup()
         self.plan_cache.clear()
@@ -192,6 +193,13 @@ class Database:
             self.device_manager.invalidate_table(name)
             self.plan_cache.invalidate_table(name)
 
+    def create_order_index(self, table: str, column: str):
+        """CREATE ORDER INDEX (paper §3.1): explicit sorted index used for
+        point lookups (binary search) and merge joins."""
+        self._check_alive()
+        self.catalog.table(table)
+        return self.index_manager.create_order_index(table, column)
+
     # ---- querying -------------------------------------------------------------
     def scan(self, name: str) -> Query:
         self._check_alive()
@@ -243,7 +251,7 @@ def startup(path: Optional[str] = None,
             memory_budget: Optional[int] = None,
             device_budget: Optional[int] = None,
             device_batch_rows: Optional[int] = None,
-            data_skipping: bool = False,
+            data_skipping: bool = True,
             device="cuda") -> Database:
     """monetdb_startup for an in-memory database.
 
@@ -262,11 +270,15 @@ def startup(path: Optional[str] = None,
     the batch decomposition — not the budget — determines floating-point
     summation order).
 
-    ``data_skipping`` defaults to False here and ``True`` raises
-    ``NotImplementedError``: imprint zone maps belong to the imprint slice.
-    The reference engine promises bit-identical results either way, so
-    queries lose only the skipping, never an answer.  ``path`` (persistence)
-    and ``memory_budget`` (out-of-core execution) raise the same way."""
+    ``data_skipping`` (default True) wires the paper's §3.1 column imprints
+    into planning: every ``Filter(Scan)`` over a base table gets a plan-time
+    skip-set from zone maps that the ``imprint`` kernel builds on
+    ``device``; the device batch streams never upload a skipped batch and
+    upload only the candidate blocks of a boundary batch, and the host
+    program selects through the zone maps.  Results are bit-identical with
+    ``data_skipping=False``, the forced-off knob.  ``path`` (persistence)
+    and ``memory_budget`` (out-of-core execution) raise
+    ``NotImplementedError`` naming their slice."""
     return Database(path, memory_budget=memory_budget,
                     device_budget=device_budget,
                     device_batch_rows=device_batch_rows,
@@ -357,7 +369,10 @@ class Connection:
         # the next committed write gets)
         snap = Database(None, device_budget=db.device_budget,
                         device_batch_rows=db.device_batch_rows,
-                        device=db.device)
+                        data_skipping=db.data_skipping, device=db.device)
+        # the snapshot database has its own fresh IndexManager: skip-sets
+        # and imprints derive from the snapshot's (uncommitted) tables,
+        # never from the committed table sharing the version number
         snap.catalog.tables = self._txn.tables()
         snap.buffer_manager = db.buffer_manager
         snap.admission_gate = db.admission_gate

@@ -8,8 +8,9 @@ new versions atomically or raises ``ConflictError``.
 Because tables are immutable values, snapshot isolation is structural: a
 reader's snapshot can never observe a concurrent writer.  This is the
 functional-array restatement of MonetDBLite's model.  This package holds
-the in-memory commit path; the write-ahead log and the index hooks arrive
-with the persistence and imprint slices.
+the in-memory commit path and its index hooks (imprints extended on
+append, dropped with their table); the write-ahead log arrives with the
+persistence slice.
 """
 
 from __future__ import annotations
@@ -140,5 +141,7 @@ class TransactionManager:
                     # rides as an immutable tail — O(delta rows) per commit
                     t = delta_append(t, chunk)
                 cat.tables[name] = t
+                database.index_manager.on_append(name)
             for name in txn.drops:
                 del cat.tables[name]
+                database.index_manager.invalidate_table(name)

@@ -3,7 +3,10 @@
 Runs TPC-H Q1, Q6 and Q3 (SF ``--sf``, seed ``--seed``) through the port's
 entry points — ``startup(device="cuda", device_budget=B)``, the builder
 API, ``Query.execute(distributed=True)`` — once to warm the block cache
-and the step caches, then once under ``torch.profiler`` per budget cell.
+and the step caches, then once under ``torch.profiler`` per cell: the
+tables in generator order in every budget, then lineitem and orders in
+date order (the clustered load order imprint data skipping prunes) at
+1 GiB and 128 MiB.
 For each profiled query it prints one JSON line: the host wall time, the
 device-busy time (the union of the intervals of every kernel and copy the
 card ran inside the profiled window), the idle share of that window, and
@@ -23,13 +26,17 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..core import startup
 from ..data import load_tables, tpch, tpch_queries
 
-BUDGETS = (1 << 30, 128 << 20, 64 << 20)
 QUERIES = ("q1", "q6", "q3")
+SORT_KEYS = {"lineitem": "l_shipdate", "orders": "o_orderdate"}
+CELLS = (("generated", 1 << 30), ("generated", 128 << 20),
+         ("generated", 64 << 20), ("date-sorted", 1 << 30),
+         ("date-sorted", 128 << 20))
 
 
 def _union_us(intervals) -> float:
@@ -82,11 +89,18 @@ def main(argv=None) -> int:
         print("profile_tier: no CUDA device", file=sys.stderr)
         return 2
     gen = tpch.generate(args.sf, args.seed)
-    data = {t: gen[t] for t in ("customer", "orders", "lineitem")}
-    for budget in BUDGETS:
+    data = {"generated": {t: gen[t]
+                          for t in ("customer", "orders", "lineitem")}}
+    data["date-sorted"] = dict(data["generated"])
+    for t, col in SORT_KEYS.items():
+        cols, types, scales = gen[t]
+        order = np.argsort(np.asarray(cols[col]), kind="stable")
+        data["date-sorted"][t] = ({c: np.asarray(v)[order]
+                                   for c, v in cols.items()}, types, scales)
+    for layout, budget in CELLS:
         db = startup(device="cuda", device_budget=budget,
                      device_batch_rows=args.batch_rows)
-        load_tables(db, data)
+        load_tables(db, data[layout])
         for name in QUERIES:
             query = tpch_queries.ALL_QUERIES[name]
             query(db).execute(distributed=True).to_pydict()      # warm
@@ -94,12 +108,15 @@ def main(argv=None) -> int:
                 # the planner kept the query on the host tier (Q3 at
                 # 64 MiB): there is no device time to profile
                 print(json.dumps({"query": name, "sf": args.sf,
+                                  "layout": layout,
                                   "device_budget": budget, "tier": ""}),
                       flush=True)
                 continue
             out = profile_query(query, db)
             print(json.dumps({"query": name, "sf": args.sf,
-                              "device_budget": budget, **out}), flush=True)
+                              "layout": layout, "device_budget": budget,
+                              "blocks_skipped": db.last_stats.blocks_skipped,
+                              **out}), flush=True)
         db.shutdown()
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0

@@ -268,8 +268,7 @@ def test_startup_runs_on_cuda_unless_asked_for_cpu():
     assert T.startup(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [{"path": "db"}, {"memory_budget": 1 << 20},
-                                {"data_skipping": True}])
+@pytest.mark.parametrize("kw", [{"path": "db"}, {"memory_budget": 1 << 20}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         T.startup(device="cpu", **kw)

@@ -8,8 +8,14 @@ runs on the card and each kernel wrapper (``radix_build``,
 
 * device tier vs the reference's device tier: ``rtol=1e-9``, keys exact;
 * host tier vs the reference's host tier: bit-identical;
-* the port's budget matrix {unlimited, 64 MiB, 4 MiB, 2 MiB}:
-  bit-identical, ``device_bytes_peak <= budget``, 2 MiB streams;
+* the port's budget matrix {unlimited, 64 MiB, 4 MiB, 2 MiB} x skipping
+  {on, forced-off}: bit-identical, ``device_bytes_peak <= budget``, 2 MiB
+  streams;
+* on orders and lineitem sorted by their date columns (the clustered load
+  order data skipping pays on), skipping on and off bit-identical, with
+  ``blocks_skipped`` and ``bytes_skipped_h2d`` equal to the reference's and
+  one kernel launch per live batch; a gathered boundary batch moves fewer
+  bytes, bit-identically;
 * EXPLAIN shows ``device-join`` and the fused ``device-sort``;
 * fences: the host join is never entered and partials are never
   finalized on the host on the device path;
@@ -28,6 +34,7 @@ import repro_torch.core as T
 from repro.data import tpch
 from repro.data.tpch_queries import q3 as ref_q3
 from repro_torch.core import parallel as tparallel
+from repro_torch.core.physplan import plan_physical
 from repro_torch.data import load_tables
 from repro_torch.data.tpch_queries import q3
 from repro_torch.kernels.radix_join import kernel as rk
@@ -44,9 +51,9 @@ def q3_data():
     return {t: gen[t] for t in Q3_TABLES}
 
 
-def _port_db(data, budget=None, batch_rows=BATCH_ROWS):
+def _port_db(data, budget=None, batch_rows=BATCH_ROWS, skipping=True):
     db = T.startup(device="cpu", device_budget=budget,
-                   device_batch_rows=batch_rows)
+                   device_batch_rows=batch_rows, data_skipping=skipping)
     load_tables(db, data)
     return db
 
@@ -118,36 +125,163 @@ def test_q3_host_tier_bit_identical_to_reference_host_tier(q3_data,
 
 @pytest.fixture(scope="module")
 def device_cells(q3_data):
-    """Q3 in every device-budget cell, one cold database per cell."""
+    """Q3 in every (device budget, skipping) cell, one cold database per
+    cell."""
     out = {}
     for budget in DEVICE_BUDGETS:
-        db = _port_db(q3_data, budget)
-        res = q3(db).execute(distributed=True).to_pydict()
-        s = db.last_stats
-        out[budget] = (res, s.device_tier, s.device_sorted,
-                       s.device_bytes_peak, s.device_evictions)
+        for skipping in (True, False):
+            db = _port_db(q3_data, budget, skipping=skipping)
+            res = q3(db).execute(distributed=True).to_pydict()
+            s = db.last_stats
+            out[budget, skipping] = (res, s.device_tier, s.device_sorted,
+                                     s.device_bytes_peak, s.device_evictions)
     return out
 
 
 def test_q3_matrix_runs_on_device(device_cells):
-    for budget, (_res, tier, srt, peak, _ev) in device_cells.items():
-        assert tier.startswith("join-") and srt, (budget, tier)
-        if budget is not None:
-            assert peak <= budget, (budget, peak)
-    assert device_cells[2 << 20][1] == "join-streamed"
-    assert device_cells[64 << 20][1] == "join-resident"
+    for cell, (_res, tier, srt, peak, _ev) in device_cells.items():
+        assert tier.startswith("join-") and srt, (cell, tier)
+        if cell[0] is not None:
+            assert peak <= cell[0], (cell, peak)
+    for skipping in (True, False):
+        assert device_cells[2 << 20, skipping][1] == "join-streamed"
+        assert device_cells[64 << 20, skipping][1] == "join-resident"
 
 
 def test_q3_matrix_bit_identical(device_cells):
-    ref = device_cells[None][0]
-    for budget in DEVICE_BUDGETS[1:]:
-        _assert_bits(device_cells[budget][0], ref, f"budget={budget}")
+    ref = device_cells[None, True][0]
+    for cell, (res, *_s) in device_cells.items():
+        _assert_bits(res, ref, f"cell={cell}")
 
 
 def test_q3_matrix_matches_host(device_cells, q3_data):
     host = q3(_port_db(q3_data)).execute().to_pydict()
-    for budget, (res, *_s) in device_cells.items():
-        _assert_close(res, host, f"budget={budget} vs host")
+    for cell, (res, *_s) in device_cells.items():
+        _assert_close(res, host, f"cell={cell} vs host")
+
+
+# ---------------------------------------------------------------------------
+# data skipping on clustered tables
+# ---------------------------------------------------------------------------
+
+
+def _sorted_by(data: dict, table: str, column: str) -> tuple:
+    """``table``'s arrays stably sorted by ``column``."""
+    cols, types, scales = data[table]
+    order = np.argsort(np.asarray(cols[column]), kind="stable")
+    return ({c: np.asarray(v)[order] for c, v in cols.items()}, types,
+            scales)
+
+
+@pytest.fixture(scope="module")
+def q3_sorted(q3_data):
+    """Q3's tables with orders and lineitem in date order, and the
+    reference's device-tier Q3 over them with skipping on."""
+    data = dict(q3_data)
+    data["orders"] = _sorted_by(q3_data, "orders", "o_orderdate")
+    data["lineitem"] = _sorted_by(q3_data, "lineitem", "l_shipdate")
+    db = R.startup(device_batch_rows=BATCH_ROWS)
+    for name, (cols, types, scales) in data.items():
+        db.create_table(name, cols, types=types, scales=scales)
+    try:
+        dev = ref_q3(db).execute(distributed=True).to_pydict()
+        s = db.last_stats
+        assert s.device_tier == "join-resident"
+        ref = (dev, s.blocks_skipped, s.bytes_skipped_h2d)
+    finally:
+        db.shutdown()
+    return data, ref
+
+
+def _live_batches(phys, db, table: str) -> int:
+    """Batches of ``table`` that hold a candidate block, from the plan's
+    skip-set (every batch when the table has none)."""
+    n = db.table(table).num_rows
+    nb = -(-n // BATCH_ROWS)
+    ss = phys.skip_set_for_table(table)
+    if ss is None:
+        return nb
+    return sum(ss.batch_qualifies(b * BATCH_ROWS,
+                                  min(n, (b + 1) * BATCH_ROWS))
+               for b in range(nb))
+
+
+@pytest.mark.parametrize("budget", [None, 2 << 20])
+def test_q3_sorted_skipping_bit_identical(q3_sorted, budget):
+    data, (ref, ref_blocks, ref_h2d) = q3_sorted
+    on = _port_db(data, budget)
+    off = _port_db(data, budget, skipping=False)
+    phys = plan_physical(q3(on).plan, on, distributed=True)
+    live = {t: _live_batches(phys, on, t) for t in Q3_TABLES}
+    before = (rk.BUILD_CALLS.count, rk.PROBE_CALLS.count)
+    r_on = q3(on).execute(distributed=True).to_pydict()
+    calls = (rk.BUILD_CALLS.count - before[0],
+             rk.PROBE_CALLS.count - before[1])
+    s_on = on.last_stats
+    r_off = q3(off).execute(distributed=True).to_pydict()
+    s_off = off.last_stats
+    assert s_on.device_tier == s_off.device_tier
+    assert s_on.device_tier == ("join-resident" if budget is None
+                                else "join-streamed")
+    _assert_bits(r_on, r_off, f"skipping on/off budget={budget}")
+    _assert_close(r_on, ref, "vs reference device, skipping on")
+    assert s_on.blocks_skipped == ref_blocks > 0
+    assert s_on.bytes_skipped_h2d == ref_h2d > 0
+    assert s_off.blocks_skipped == s_off.bytes_skipped_h2d == 0
+    assert s_on.device_bytes_h2d < s_off.device_bytes_h2d
+    assert live["lineitem"] < -(-on.table("lineitem").num_rows
+                                // BATCH_ROWS)
+    assert calls == (sum(live.values()),
+                     live["orders"] + live["lineitem"] + 1)
+
+
+def test_intra_batch_gather_reduces_h2d_bit_identically():
+    """Block-clustered alternating data, one 32768-row batch: every other
+    imprint block qualifies, so the batch is live but half its blocks are
+    dead — the gathered layout uploads only candidate slots.  h2d bytes
+    drop, ``bytes_skipped_h2d`` accounts the savings (the reference's
+    number), and the result is bit-identical to the ungathered run and
+    matches the host."""
+    from repro_torch.core.indexes import IMPRINT_BLOCK
+    n = 16 * IMPRINT_BLOCK
+    blk_vals = np.where(np.arange(16) % 2 == 0, 100, 900)
+    rng = np.random.default_rng(5)
+    data = {"ship": np.repeat(blk_vals, IMPRINT_BLOCK).astype(np.int32),
+            "qty": rng.integers(1, 51, n).astype(np.float64),
+            "flag": np.asarray(["A", "N", "R"],
+                               dtype=object)[rng.integers(0, 3, n)]}
+
+    def mk(pkg, **kw):
+        if pkg is T:
+            kw.setdefault("device", "cpu")
+        db = pkg.startup(**kw)
+        db.create_table("li", data, types={"ship": pkg.DBType.DATE})
+        return db
+
+    def q(pkg, db):
+        return (db.scan("li").filter(pkg.Col("ship") <= pkg.Lit(500))
+                .group_by("flag")
+                .agg(total=("sum", pkg.Col("qty")), n=("count", None))
+                .order_by("flag"))
+
+    on = mk(T, device_budget=64 << 20, device_batch_rows=n)
+    off = mk(T, device_budget=64 << 20, device_batch_rows=n,
+             data_skipping=False)
+    ref = mk(R, device_budget=64 << 20, device_batch_rows=n)
+    r_on = q(T, on).execute(distributed=True).to_pydict()
+    r_off = q(T, off).execute(distributed=True).to_pydict()
+    r_ref = q(R, ref).execute(distributed=True).to_pydict()
+    s_on, s_off = on.last_stats, off.last_stats
+    assert s_on.device_tier == "resident"
+    # one live batch, so ALL savings here are intra-batch gather
+    assert s_on.bytes_skipped_h2d > 0
+    assert s_on.bytes_skipped_h2d == ref.last_stats.bytes_skipped_h2d
+    assert s_on.device_bytes_h2d < s_off.device_bytes_h2d
+    assert s_off.bytes_skipped_h2d == 0
+    _assert_bits(r_on, r_off, "gather on/off")
+    _assert_close(r_on, r_ref, "gather vs reference device")
+    _assert_close(r_on, q(T, mk(T)).execute().to_pydict(), "vs host")
+    ref.shutdown()
 
 
 def test_q3_explain_annotates_device_join_and_sort(q3_data):

@@ -1,6 +1,6 @@
 """The port's kernels (repro_torch.kernels) against the reference kernels
 (repro.kernels) on the CPU: scan_agg, hash_group, radix_join (build and
-probe) and sort.
+probe), sort and imprint.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, so these tests
 hold the port's arithmetic to the reference shims on the same numpy inputs:
@@ -13,7 +13,11 @@ hold the port's arithmetic to the reference shims on the same numpy inputs:
   positive, so no sum cancels;
 * radix_join also against the reference's unpartitioned oracle
   (``ref.radix_join_ref``), and sort with float32-representable keys, so
-  the reference network and the port must give the same permutation.
+  the reference network and the port must give the same permutation;
+* imprint bit for bit against the float64 numpy loop the reference engine
+  builds its imprints with (``build_zone_maps``, and ``_extend_imprint``'s
+  bins), and against the float32 Pallas kernel in interpret mode: equal
+  bitmaps, Pallas bounds enclosing the port's.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each against its plain version there.
@@ -25,7 +29,10 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.core import indexes as ref_indexes
+from repro.core.types import DBType as RDBType
 from repro.kernels.hash_group import ops as ref_hops
+from repro.kernels.imprint import ops as ref_iops
 from repro.kernels.radix_join import ops as ref_rops
 from repro.kernels.radix_join.ref import radix_join_ref
 from repro.kernels.scan_agg import ops as ref_sops
@@ -33,6 +40,8 @@ from repro.kernels.sort import ops as ref_soops
 from repro_torch.kernels.hash_group import kernel as hk
 from repro_torch.kernels.hash_group import ops as hops
 from repro_torch.kernels.hash_group.ref import hash_group_ref
+from repro_torch.kernels.imprint import kernel as ik
+from repro_torch.kernels.imprint import ops as iops
 from repro_torch.kernels.radix_join import kernel as rk
 from repro_torch.kernels.radix_join import ops as rops
 from repro_torch.kernels.radix_join.ref import radix_build_ref
@@ -362,11 +371,16 @@ def _call_sort(rng):
     soops.sort_block(rng.normal(size=9), device="cpu")
 
 
+def _call_imprint(rng):
+    ik.zone_maps(torch.as_tensor(rng.normal(size=9)))
+
+
 @pytest.mark.parametrize("call,calls,launches", [
     (_call_hash_group, hk.CALLS, hk.LAUNCHES),
     (_call_radix_build, rk.BUILD_CALLS, rk.BUILD_LAUNCHES),
     (_call_radix_probe, rk.PROBE_CALLS, rk.PROBE_LAUNCHES),
-    (_call_sort, so.CALLS, so.LAUNCHES)])
+    (_call_sort, so.CALLS, so.LAUNCHES),
+    (_call_imprint, ik.CALLS, ik.LAUNCHES)])
 def test_wrappers_count_calls_not_launches_on_cpu(rng, call, calls,
                                                   launches):
     before_calls, before_launch = calls.count, launches.count
@@ -477,3 +491,189 @@ def test_sort_rejects_bad_arguments(bad):
         keys, err = torch.ones(16, dtype=torch.float64)[::2], ValueError
     with pytest.raises(err):
         so.sort_pairs(keys)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device",
+                                 "not_contiguous", "div", "inv"])
+def test_imprint_rejects_bad_arguments(bad):
+    vals = torch.ones(8, dtype=torch.float64)
+    div, rng, err = 1.0, None, TypeError
+    if bad == "dtype":
+        vals = vals.to(torch.int8)
+    elif bad == "shape":
+        vals = torch.ones((2, 4), dtype=torch.float64)
+    elif bad == "device":
+        vals, err = vals.to("meta"), ValueError
+    elif bad == "not_contiguous":
+        vals, err = torch.ones(16, dtype=torch.float64)[::2], ValueError
+    elif bad == "div":
+        div, err = 0.0, ValueError
+    else:
+        rng, err = (0.0, -1.0), ValueError
+    with pytest.raises(err):
+        ik.zone_maps(vals, div, rng)
+
+
+# ---------------------------------------------------------------------------
+# imprint
+# ---------------------------------------------------------------------------
+
+_I32_NULL = np.iinfo(np.int32).min
+_I64_NULL = np.iinfo(np.int64).min
+
+
+def _imprint_column(rng, case, n):
+    """``(stored values, reference dbtype, scale)`` of one edge case."""
+    if case == "ragged":
+        return rng.uniform(-100, 100, n), RDBType.FLOAT64, 0
+    if case == "null_block":              # one block with no valid row
+        v = rng.uniform(-100, 100, n)
+        v[2048:4096] = np.nan
+        return v, RDBType.FLOAT64, 0
+    if case == "constant":
+        return np.full(n, 42.5), RDBType.FLOAT64, 0
+    if case == "int64_sentinel":
+        v = rng.integers(-10**12, 10**12, n).astype(np.int64)
+        v[rng.random(n) < 0.2] = _I64_NULL
+        v[:2048] = _I64_NULL              # an all-NULL block too
+        return v, RDBType.INT64, 0
+    if case == "decimal":
+        v = rng.integers(-10**9, 10**9, n).astype(np.int64)
+        v[rng.random(n) < 0.1] = _I64_NULL
+        return v, RDBType.DECIMAL, 2
+    if case == "date":
+        v = np.sort(rng.integers(8000, 10500, n)).astype(np.int32)
+        v[rng.random(n) < 0.05] = _I32_NULL
+        return v, RDBType.DATE, 0
+    if case == "float_nan":
+        v = rng.normal(0, 1e6, n)
+        v[rng.random(n) < 0.3] = np.nan
+        return v, RDBType.FLOAT64, 0
+    if case == "float32":
+        v = rng.normal(0, 10, n).astype(np.float32)
+        v[rng.random(n) < 0.1] = np.nan
+        return v, RDBType.FLOAT32, 0
+    assert case == "all_null"
+    return np.full(n, _I32_NULL, dtype=np.int32), RDBType.INT32, 0
+
+
+def _reference_input(v, dbtype, scale):
+    """The reference engine's ``build_imprint`` preparation of a column:
+    float64 values (DECIMAL divided by 10**scale) and the NULL mask."""
+    f = v.astype(np.float64)
+    if dbtype == RDBType.DECIMAL:
+        f = f / (10 ** scale)
+    if dbtype in (RDBType.FLOAT32, RDBType.FLOAT64):
+        return f, np.isnan(f)
+    return f, v == (_I32_NULL if v.dtype == np.int32 else _I64_NULL)
+
+
+def _assert_zone_maps_equal(got, want):
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype
+    assert got[3:] == want[3:]                # lo, hi: Python floats
+
+
+@pytest.mark.parametrize("n,null_frac", [(100, 0.0), (5000, 0.1),
+                                         (20480, 0.5), (2048, 1.0)])
+def test_imprint_matches_host_mirror_bit_identical(rng, n, null_frac):
+    """test_kernels.py's sweep: the port's zone maps equal the reference
+    engine's float64 ``build_zone_maps`` bit for bit."""
+    vals = rng.uniform(-100, 100, n)
+    nulls = rng.random(n) < null_frac
+    col = np.where(nulls, np.nan, vals)
+    got = iops.build_zone_maps(torch.as_tensor(col))
+    _assert_zone_maps_equal(got, ref_iops.build_zone_maps(vals, nulls,
+                                                          2048, 16))
+
+
+@pytest.mark.parametrize("case", ["ragged", "null_block", "constant",
+                                  "int64_sentinel", "decimal", "date",
+                                  "float_nan", "float32", "all_null"])
+def test_imprint_edge_cases_bit_identical(rng, case):
+    n = 5 * 2048 + 1234
+    v, dbtype, scale = _imprint_column(rng, case, n)
+    div = float(10 ** scale)
+    got = iops.build_zone_maps(torch.as_tensor(v), div)
+    want = ref_iops.build_zone_maps(*_reference_input(v, dbtype, scale),
+                                    2048, 16)
+    _assert_zone_maps_equal(got, want)
+
+
+class _Tail:
+    """The table view ``_extend_imprint`` reads: schema, row count, tail."""
+
+    def __init__(self, v, dbtype, scale):
+        from repro.core.types import ColumnSchema
+        self._v = v
+        self.num_rows = len(v)
+        cs = ColumnSchema("c", dbtype, scale=scale)
+        self.schema = type("S", (), {"column": lambda _s, _n: cs})()
+
+    def tail_array(self, _name, start):
+        return self._v[start:]
+
+
+@pytest.mark.parametrize("case", ["ragged", "int64_sentinel", "decimal",
+                                  "date", "float_nan", "constant"])
+def test_imprint_extension_matches_reference_bins(rng, case):
+    """A tail appended past a ragged last block, with values outside the
+    old range: one launch binned against the old (lo, hi) gives the
+    reference ``_extend_imprint``'s mins, maxs and bitmaps."""
+    n0 = 3 * 2048 + 500
+    v, dbtype, scale = _imprint_column(rng, case, n0 + 4000)
+    if case in ("ragged", "float_nan"):
+        v[n0:] *= 3.0                       # beyond the old range
+    f, nulls = _reference_input(v[:n0], dbtype, scale)
+    mins, maxs, bm, lo, hi = ref_iops.build_zone_maps(f, nulls, 2048, 16)
+    old = ref_indexes.Imprint(2048, mins, maxs, bm, lo, hi, n0)
+    want = ref_indexes._extend_imprint(old, _Tail(v, dbtype, scale), "c")
+    keep = n0 // 2048
+    got = iops.extend_zone_maps(torch.as_tensor(v[keep * 2048:]),
+                                float(10 ** scale), lo, hi)
+    np.testing.assert_array_equal(got[0], want.mins[keep:])
+    np.testing.assert_array_equal(got[1], want.maxs[keep:])
+    np.testing.assert_array_equal(got[2], want.bitmaps[keep:])
+
+
+def test_imprint_extension_bins_infinities_at_the_ends():
+    """Appended +-inf against a finite old range land in bins 15 and 0
+    (the plain version clamps before the cast, as the kernel does); a
+    block holding +inf stays a candidate for a bound past the old range."""
+    from repro_torch.core.indexes import Imprint
+    tail = np.array([np.inf] * 3 + [-np.inf] * 2 + [np.nan])
+    mins, maxs, bm = iops.extend_zone_maps(torch.as_tensor(tail), 1.0,
+                                           0.0, 10.0)
+    assert bm.tolist() == [(1 << 15) | 1]
+    assert mins.tolist() == [-np.inf] and maxs.tolist() == [np.inf]
+    imp = Imprint(2048, mins, maxs, bm, 0.0, 10.0, len(tail))
+    assert imp.candidate_blocks(1e300, np.inf, False, False).all()
+
+
+def test_imprint_host_vs_pallas_semantics(rng):
+    """test_kernels.py's data through the Pallas kernel in interpret mode:
+    the same bitmaps, and Pallas's widened float32 bounds enclose the
+    port's exact float64 bounds."""
+    vals = rng.normal(0, 10, 12345)
+    nulls = rng.random(12345) < 0.2
+    got = iops.build_zone_maps(torch.as_tensor(np.where(nulls, np.nan,
+                                                        vals)))
+    mp = ref_iops.build_zone_maps_pallas(vals, nulls, 2048, 16,
+                                         interpret=True)
+    np.testing.assert_array_equal(got[2], mp[2])
+    assert (mp[0] <= got[0]).all() and (mp[1] >= got[1]).all()
+
+
+def test_imprint_range_and_launch_shape(rng):
+    """``zone_range`` reads (lo, hi, inv) off the block bounds as the
+    reference's ``ops._range`` does off the values; without a range the
+    wrapper returns bounds only (the build's first launch)."""
+    vals = rng.uniform(-5, 5, 9000)
+    nulls = rng.random(9000) < 0.3
+    mins, maxs = ik.zone_maps(torch.as_tensor(np.where(nulls, np.nan,
+                                                       vals)))
+    assert mins.shape == maxs.shape == (5,)
+    assert iops.zone_range(mins, maxs) == ref_iops._range(vals, nulls, 16)
+    empty = torch.full((3,), np.inf, dtype=torch.float64)
+    assert iops.zone_range(empty, -empty) == (0.0, 0.0, 0.0)
